@@ -1,28 +1,37 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (evergreen_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--profile OUT_DIR]
+    python3 chip_smoke.py [--profile OUT_DIR | --sweep]
 
 from the root of a checkout; it needs one card. Phases (any failure
 raises and exits non-zero):
 
 1. card and build: the card's name and power limit, then every kernel of
-   the solve built from csrc/ (one nvcc per source, in parallel);
+   the solve built from csrc/ (one nvcc per source, in parallel); the SM
+   clock the chain bounds use, and the launch floor (the device time of
+   a one-element ``add_``);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the solve gives it on BASELINE config 3 (200 distros × 50k
-   tasks × 4,000 hosts) and on ragged cases; then its device time, the
-   plain version's, one PyTorch library call's (torch.profiler) and the
-   bound;
+   tasks × 4,000 hosts) and on ragged cases — ``segment_sum`` on each of
+   its three plans at one and two columns, bit-equal to the CPU; then
+   its device time, the plain version's, one PyTorch library call's
+   (torch.profiler), the plan build's, and the bound: the larger of the
+   byte, operation and (for ordered sums) chain bounds;
 3. the main path at config 3 (seed 0, seed 0 with a capacity page,
    seed 1): ``run_solve_packed`` on the card, then the same three
    problems as requests to the solver sidecar
    (``serve_background(device="cuda")``) — each reply byte-identical to
    the library call, the integer outputs equal to the port's own CPU
-   run, the f32 outputs within their tolerances, and every kernel
-   launched by that run; then request and solve times and a profile of
-   each solve (a chrome trace in OUT_DIR with ``--profile``);
+   run, the f32 outputs within their tolerances, and each kernel
+   launched exactly as often as the solves call it (in all, and per
+   segment plan); then request and solve times and a profile of each
+   solve (a chrome trace in OUT_DIR with ``--profile``);
 4. a JSON line of the kernels, the card's line, and the last line
    ``{"ok": true, "device": {...}}``.
+
+``--sweep`` runs phase 1, then, instead of the rest, times both kernels
+built with other values of their design constants (``sweep``) and
+prints the card's line.
 
 Imports only the port, torch, numpy and the standard library.
 """
@@ -41,6 +50,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 #: (NVIDIA data sheet, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+#: cycles from one dependent f32 add to the next on an SM; an ordered
+#: sum of L elements takes at least L of them
+FADD_CYCLES = 4
 
 SEED = 0
 CONFIG3 = (200, 50_000)
@@ -54,6 +66,25 @@ F32_TOL = {
     "cap_x": CAP_TOL,
     "aff_pool": CAP_TOL,
 }
+#: fused_distro_stats' two f32 sums; its other statistics are counts
+STAT_SUMS = ("d_expected_dur_s", "d_over_dur_s")
+
+#: ``--sweep``: builds of each kernel with other values of its design
+#: constants, the source's own values first. segment_sum's staging holds
+#: a piece and one window past it (piece + threads elements) in one
+#: round of threads × stage-unroll gathers and in a quarter of its tile
+#: (the source's static_assert), which leaves out larger pieces.
+DS_VARIANTS = [dict(DISTRO_STATS_THREADS=t, DISTRO_STATS_UNROLL=u)
+               for t, u in ((64, 8), (32, 8), (128, 8), (256, 8), (64, 4), (64, 16))]
+SS_VARIANTS = [dict(SEGMENT_SUM_THREADS=t, SEGMENT_SUM_PIECE=p,
+                    SEGMENT_SUM_STAGE_UNROLL=u, SEGMENT_SUM_WALK_DEPTH=w)
+               for t, p, u, w in (
+                   (256, 512, 3, 2), (256, 512, 4, 4), (256, 1024, 8, 4), (256, 512, 8, 4),
+                   (256, 1536, 8, 4), (256, 1024, 16, 4), (128, 512, 8, 4), (128, 1024, 16, 4),
+                   (256, 1024, 8, 1), (256, 1024, 8, 2), (256, 1024, 8, 8), (256, 512, 3, 4),
+                   (256, 768, 4, 4), (256, 256, 2, 4), (256, 256, 4, 4), (128, 256, 4, 4),
+                   (128, 384, 4, 4), (256, 512, 4, 2), (256, 512, 4, 8), (256, 256, 2, 2),
+                   (256, 768, 4, 2), (256, 1024, 5, 4), (256, 1280, 6, 4), (256, 512, 3, 1))]
 
 
 def log(msg: str) -> None:
@@ -87,20 +118,24 @@ def device_ms(torch, fn, calls: int = 50) -> float:
     """Device time of one call of ``fn``: the summed durations of every
     kernel, copy and memset it puts on the card, from torch.profiler over
     ``calls`` calls, divided by ``calls``. Host time between launches is
-    not counted (``time_cuda`` counts it)."""
+    not counted (``time_cuda`` counts it). A profile that sees no device
+    work at all (it happened once in a sweep's long run of profiles) is
+    taken again, twice at most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    check(us > 0, "the profiler saw no device time")
-    return us / calls / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / calls / 1e3
+    raise AssertionError("the profiler saw no device time")
 
 
 def measure(torch, kernel, plain, library) -> dict:
@@ -112,10 +147,42 @@ def measure(torch, kernel, plain, library) -> dict:
     )
 
 
+def bounds(bytes_: int, ops: int, chain_ms) -> dict:
+    """The least time of the work: bytes over the HBM rate, operations
+    over the f32 rate and, where the function's adds must form one ordered
+    chain, ``chain_ms``; ``bound_ms`` is the largest, ``bound_by`` names it."""
+    cands = {"bytes": 1e3 * bytes_ / HBM_BYTES_PER_S,
+             "operations": 1e3 * ops / F32_OPS_PER_S}
+    if chain_ms is not None:
+        cands["chain"] = chain_ms
+    by = max(cands, key=cands.get)
+    return dict(bound_ms=cands[by], bound_by=by, byte_bound_ms=cands["bytes"],
+                chain_bound_ms=chain_ms)
+
+
+def fmt_row(r: dict) -> str:
+    chain = ("none" if r["chain_bound_ms"] is None
+             else f"{r['chain_bound_ms'] * 1e3:.3f} us")
+    return (f"device time per call {r['ms'] * 1e3:.2f} us kernel, "
+            f"{r['plain_ms'] * 1e3:.2f} us plain, {r['library_ms'] * 1e3:.2f} us "
+            f"library; bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}; "
+            f"bytes {r['byte_bound_ms'] * 1e3:.3f} us, chain {chain}); kernel "
+            f"calls back to back {r['call_ms'] * 1e3:.2f} us each (host included)")
+
+
 def ragged_cases(np):
-    """Distro sizes that land on and around 1024-task tile edges, empty
-    distros, random sizes, and one distro owning 3·1024+17 tasks."""
-    cases = []
+    """Distro sizes that land on and around 1024-task tile edges and the
+    kernel's warp and stride edges, empty distros, random sizes, and one
+    distro owning 3·1024+17 tasks."""
+    rng = np.random.default_rng(99)
+    counts = np.array([0, 1, 31, 32, 33, 250, 257, 3 * 1024 + 17, 0])
+    n = int(counts.sum())
+    cases = [(counts, dict(
+        t_valid=rng.random(n) < 0.9, t_deps_met=rng.random(n) < 0.7,
+        t_expected_s=(rng.random(n) * 100).astype(np.float32),
+        t_wait_dep_met_s=(rng.random(n) * 100).astype(np.float32),
+        t_is_merge=rng.random(n) < 0.1,
+    ), (rng.random(len(counts)) * 50 + 1).astype(np.float32))]
     for seed in range(6):
         rng = np.random.default_rng(seed)
         D = int(rng.integers(1, 40))
@@ -171,12 +238,111 @@ def profile_solve(torch, solve_once, out_dir) -> None:
         prof.export_chrome_trace(os.path.join(out_dir, "solve_trace.json"))
 
 
+def segment_inputs(torch, np, a, d_thresh) -> dict:
+    """``segment_sum``'s inputs on the solve's three plans (task→segment,
+    host→segment, distro→pool) over the unpacked snapshot ``a``: name ->
+    (segment ids, segments, live mask, [2, n_elem] columns, the column
+    count the solve sums there at once). The task plan takes the
+    allocator's two duration columns, the others seeded random values on
+    their live elements."""
+    rng = np.random.default_rng(1)
+
+    def masked_rand(live, scale):
+        x = torch.as_tensor((rng.random(live.shape[0]) * scale).astype(np.float32))
+        return torch.where(live, x.to(live.device), 0.0)
+
+    dm = a["t_valid"] & a["t_deps_met"]
+    dur = a["t_expected_s"]
+    over = dm & (dur > d_thresh[a["t_distro"].long()])
+    G = a["g_distro"].shape[0]
+    return {
+        "task": (a["t_seg"], G, a["t_valid"],
+                 torch.stack([torch.where(dm, dur, 0.0), torch.where(over, dur, 0.0)]), 2),
+        "host": (a["h_seg"], G, a["h_valid"],
+                 torch.stack([masked_rand(a["h_valid"], 1.0),
+                              masked_rand(a["h_valid"], 1.0)]), 1),
+        "pool": (a["d_pool"], 8, a["d_valid"],
+                 torch.stack([masked_rand(a["d_valid"], 100.0),
+                              masked_rand(a["d_valid"], 10.0)]), 2),
+    }
+
+
+def sweep(torch, ds_args, plan_inputs) -> None:
+    """Both kernels built with other values of their design constants
+    (``DS_VARIANTS``, ``SS_VARIANTS``; the first of each is the source's
+    own), each result held against the source's own build
+    (``segment_sum`` bit for bit, ``fused_distro_stats`` counts exact and
+    sums within ``SUM_RTOL``), then timed at the config-3 shapes: device
+    time per call in two rounds, the second in the reverse order."""
+    import ctypes
+    import re
+
+    from evergreen_tpu_torch.ops import _build, distro_stats, segment
+
+    jobs = ([("distro_stats", d) for d in DS_VARIANTS]
+            + [("segment_sum", d) for d in SS_VARIANTS])
+    t0 = time.perf_counter()
+    paths = _build.build_variants(jobs)
+    log(f"sweep: {len(jobs)} builds in {time.perf_counter() - t0:.2f} s wall")
+    fns, notes = [], []
+    for (name, defs), path in zip(jobs, paths):
+        mod = distro_stats if name == "distro_stats" else segment
+        fns.append(mod.bind(ctypes.CDLL(path)))
+        with open(path[:-3] + ".log") as f:
+            text = f.read()
+        regs = "/".join(re.findall(r"Used (\d+) registers", text))
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", text))
+        notes.append(f"registers {regs}, spill stores {spills} B")
+
+    def label(defs):
+        return " ".join(f"{k.split('_', 2)[-1].lower()}={v}" for k, v in defs.items())
+
+    def rounds(cases):  # label -> fn; two rounds of device_ms, in turn
+        times = {lab: [] for lab in cases}
+        for order in (list(cases), list(cases)[::-1]):
+            for lab in order:
+                times[lab].append(device_ms(torch, cases[lab]))
+        return times
+
+    n_ds = len(DS_VARIANTS)
+    want = distro_stats.launch(*ds_args, fn=fns[0])
+    cases = {}
+    for defs, fn in zip(DS_VARIANTS, fns[:n_ds]):
+        got = distro_stats.launch(*ds_args, fn=fn)
+        for stat in STAT_SUMS:
+            torch.testing.assert_close(got[stat], want[stat], rtol=SUM_RTOL, atol=0.0)
+        check(all(torch.equal(got[s_], want[s_]) for s_ in got if s_ not in STAT_SUMS),
+              f"fused_distro_stats {label(defs)}: counts differ")
+        cases[label(defs)] = lambda fn=fn: distro_stats.launch(*ds_args, fn=fn)
+    times = rounds(cases)
+    for (lab, ts), note in zip(times.items(), notes[:n_ds]):
+        log(f"sweep fused_distro_stats {lab}: "
+            + ", ".join(f"{t * 1e3:.3f}" for t in ts) + f" us device time; {note}")
+
+    for pname, (seg, n_seg, live, x2, _) in plan_inputs.items():
+        plan = segment.segment_plan(seg, n_seg, live)
+        for k, x in ((1, x2[0]), (2, x2)):
+            want = segment.launch(x, plan, fn=fns[n_ds])
+            cases = {}
+            for defs, fn in zip(SS_VARIANTS, fns[n_ds:]):
+                check(torch.equal(segment.launch(x, plan, fn=fn), want),
+                      f"segment_sum[{pname}] {label(defs)}: not bit-equal")
+                cases[label(defs)] = lambda fn=fn, x=x: segment.launch(x, plan, fn=fn)
+            times = rounds(cases)
+            for (lab, ts), note in zip(times.items(), notes[n_ds:]):
+                log(f"sweep segment_sum[{pname}] k={k} {lab}: "
+                    + ", ".join(f"{t * 1e3:.3f}" for t in ts)
+                    + f" us device time; {note}")
+    log("sweep: every build equal to the source's own")
+
+
 def main() -> int:
     profile_dir = None
+    sweep_mode = sys.argv[1:] == ["--sweep"]
     if len(sys.argv) == 3 and sys.argv[1] == "--profile":
         profile_dir = sys.argv[2]
-    elif len(sys.argv) != 1:
-        print("usage: chip_smoke.py [--profile OUT_DIR]", file=sys.stderr)
+    elif len(sys.argv) != 1 and not sweep_mode:
+        print("usage: chip_smoke.py [--profile OUT_DIR | --sweep]", file=sys.stderr)
         return 2
     if not os.path.isdir(os.path.join(HERE, "evergreen_tpu_torch")):
         print("chip_smoke: evergreen_tpu_torch/ is not beside this script; "
@@ -249,6 +415,17 @@ def main() -> int:
                 for line in f.read().splitlines():
                     if "registers" in line or "spill" in line:
                         log(f"  ptxas {k}: {line.strip()}")
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    sm_mhz = float(clock.split()[0])
+    # the launch floor: the device time of the smallest kernel there is
+    one = torch.zeros(1, device=dev)
+    floor_ms = device_ms(torch, lambda: one.add_(1.0))
+    log(f"SM clock for the chain bounds: {sm_mhz:.0f} MHz (clocks.max.sm "
+        f"'{clock}'); launch floor (one-element add_): {floor_ms * 1e3:.2f} us "
+        f"device time")
 
     # ---- config-3 snapshots (host side) ------------------------------------ #
     t0 = time.perf_counter()
@@ -272,13 +449,16 @@ def main() -> int:
 
     # ---- 2. kernels against their plain versions on the card -------------- #
     a = unpack(s0.arena.buffers, s0.arena.layout_key(), dev)
-    N = a["t_valid"].shape[0]
     D = a["d_valid"].shape[0]
-    G = a["g_distro"].shape[0]
     rows = []
 
-    # fused_distro_stats at the allocator's inputs + the ragged cases
     ds_args = distro_stats_inputs(a)
+    if sweep_mode:
+        sweep(torch, ds_args, segment_inputs(torch, np, a, ds_args[6]))
+        print(smi)
+        return 0
+
+    # fused_distro_stats at the allocator's inputs + the ragged cases
     ds_cases = [ds_args]
     for counts, cols, th in ragged_cases(np):
         offs = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
@@ -325,10 +505,9 @@ def main() -> int:
         (dm & a["t_is_merge"]).float(),
     )
     # the kernel reads the tasks inside the distros' ranges once (three u8
-    # flags, two f32 columns), the offsets and thresholds, and writes [D, 7]
+    # flags, two f32 columns), the offsets and thresholds, and writes [D, 7];
+    # its sums may be taken in any order (rtol), so it has no ordered chain
     n_ranged = int(ds_args[5][-1])
-    ds_bytes = 11 * n_ranged + 4 * (D + 1) + 4 * D + 4 * 7 * D
-    ds_ops = 9 * n_ranged
     rows.append(dict(
         name="fused_distro_stats", route="cuda",
         source="evergreen_tpu_torch/csrc/distro_stats.cu",
@@ -336,62 +515,66 @@ def main() -> int:
         max_abs_err=ds_err,
         **measure(torch, lambda: fused_distro_stats(*ds_args),
                   lambda: fused_distro_stats_plain(*ds_args), seven_index_adds),
-        bound_ms=1e3 * max(ds_bytes / HBM_BYTES_PER_S, ds_ops / F32_OPS_PER_S),
-        bound_by="bytes" if ds_bytes / HBM_BYTES_PER_S >= ds_ops / F32_OPS_PER_S
-        else "operations",
+        **bounds(bytes_=11 * n_ranged + 4 * (D + 1) + 4 * D + 4 * 7 * D,
+                 ops=9 * n_ranged, chain_ms=None),
     ))
 
-    # segment_sum at the solve's three plans: task→segment, host→segment,
-    # distro→pool
-    ss_err = 0.0
-    rng = np.random.default_rng(1)
-    t_plan = segment_plan(a["t_seg"], G, a["t_valid"])
-    x_t = torch.where(dm, a["t_expected_s"], 0.0)
-
-    def masked_rand(live, scale):
-        x = torch.as_tensor((rng.random(live.shape[0]) * scale).astype(np.float32))
-        return torch.where(live, x.to(dev), 0.0)
-
-    plans = [
-        (x_t, t_plan),
-        (masked_rand(a["h_valid"], 1.0), segment_plan(a["h_seg"], G, a["h_valid"])),
-        (masked_rand(a["d_valid"], 100.0), segment_plan(a["d_pool"], 8, a["d_valid"])),
-    ]
-    for x, plan in plans:
-        got = segment_sum(x, plan)
-        torch.cuda.synchronize()
-        want = segment_sum_plain(x, plan)
-        torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=1e-6)
-        cpu = segment_sum(x.cpu(), segment_plan(plan.seg.cpu(), plan.n))
-        check(torch.equal(got.cpu(), cpu), "segment_sum differs from the CPU's order")
-        check(torch.equal(got, segment_sum(x, plan)), "segment_sum not repeatable")
-        ss_err = max(ss_err, float((got - want).abs().max()))
-    log(f"segment_sum: bit-equal to the CPU and within rtol {SUM_RTOL} of "
-        f"index_add_ on {len(plans)} plans; max abs err {ss_err:.3g}")
-    # the function needs each live (real-task) element's f32 value and i32
-    # segment id once, and writes one f32 per segment; the kernel's int64
-    # order and offsets are its own plan, not the function's bytes
-    n_live = int(t_plan.offsets[-1])
-    ss_bytes = (4 + 4) * n_live + 4 * G
-    ss_ops = n_live
-    rows.append(dict(
-        name="segment_sum", route="cuda",
-        source="evergreen_tpu_torch/csrc/segment_sum.cu",
-        replaces="evergreen_tpu/ops/solve.py:71",
-        max_abs_err=ss_err,
-        **measure(torch, lambda: segment_sum(x_t, t_plan),
-                  lambda: segment_sum_plain(x_t, t_plan),
-                  lambda: torch.bincount(t_plan.seg, weights=x_t, minlength=G)),
-        bound_ms=1e3 * max(ss_bytes / HBM_BYTES_PER_S, ss_ops / F32_OPS_PER_S),
-        bound_by="bytes" if ss_bytes / HBM_BYTES_PER_S >= ss_ops / F32_OPS_PER_S
-        else "operations",
-    ))
+    # segment_sum at the solve's three plans, each at one and two columns;
+    # the kernels line takes the column count the solve uses most there
+    plan_inputs = segment_inputs(torch, np, a, ds_args[6])
+    for pname, (seg, n_seg, live, x2, main_k) in plan_inputs.items():
+        plan = segment_plan(seg, n_seg, live, name=pname)
+        cpu_plan = segment_plan(plan.seg.cpu(), n_seg)
+        n_live = int(plan.offsets[-1])
+        longest = int((plan.offsets[1:] - plan.offsets[:-1]).max())
+        err = 0.0
+        for x in (x2[0], x2):
+            got = segment_sum(x, plan)
+            torch.cuda.synchronize()
+            want = segment_sum_plain(x, plan)
+            torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=1e-6)
+            check(torch.equal(got.cpu(), segment_sum(x.cpu(), cpu_plan)),
+                  f"segment_sum[{pname}] differs from the CPU's order")
+            check(torch.equal(got, segment_sum(x, plan)),
+                  f"segment_sum[{pname}] not repeatable")
+            err = max(err, float((got - want).abs().max()))
+        plan_ms = device_ms(torch, lambda: segment_plan(seg, n_seg, live))
+        chain_ms = 1e3 * longest * FADD_CYCLES / (sm_mhz * 1e6)
+        by_k = {}
+        for k, x in ((1, x2[0]), (2, x2)):
+            library = (
+                (lambda x=x: torch.bincount(plan.seg, weights=x, minlength=n_seg))
+                if k == 1 else
+                (lambda x=x: torch.zeros((k, n_seg), device=dev).index_add_(
+                    1, plan.seg, x))
+            )
+            by_k[k] = dict(
+                max_abs_err=err,
+                **measure(torch, lambda x=x: segment_sum(x, plan),
+                          lambda x=x: segment_sum_plain(x, plan), library),
+                # the function needs each live element's k f32 values and
+                # i32 segment id once, and writes k f32 per segment; the
+                # kernel's order and offsets are its own plan, not the
+                # function's bytes
+                **bounds(bytes_=(4 * k + 4) * n_live + 4 * k * n_seg,
+                         ops=k * n_live, chain_ms=chain_ms),
+            )
+            log(f"segment_sum[{pname}] k={k}: {n_live} live elements in "
+                f"{n_seg} segments, longest {longest}; " + fmt_row(by_k[k]))
+        log(f"segment_sum[{pname}] plan build (sort + searchsorted, once per "
+            f"solve): {plan_ms * 1e3:.2f} us device time")
+        rows.append(dict(
+            name=f"segment_sum[{pname}]", route="cuda",
+            source="evergreen_tpu_torch/csrc/segment_sum.cu",
+            replaces="evergreen_tpu/ops/solve.py:71", k=main_k, plan_ms=plan_ms,
+            **by_k[main_k],
+        ))
+    log(f"segment_sum: bit-equal to the CPU at k = 1, 2 and within rtol "
+        f"{SUM_RTOL} of index_add_ on {len(plan_inputs)} plans")
     for r in rows:
-        log(f"  {r['name']}: device time per call {r['ms'] * 1e3:.2f} us "
-            f"kernel, {r['plain_ms'] * 1e3:.2f} us plain, "
-            f"{r['library_ms'] * 1e3:.2f} us library; bound "
-            f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}); kernel calls "
-            f"back to back {r['call_ms'] * 1e3:.2f} us each (host included)")
+        r["floor_ms"] = floor_ms
+        log(f"  {r['name']}" + (f" k={r['k']}" if "k" in r else "") + ": "
+            + fmt_row(r) + f"; floor {floor_ms * 1e3:.2f} us")
     del a
 
     # ---- 3. the main path at config 3 ------------------------------------- #
@@ -401,6 +584,7 @@ def main() -> int:
 
     fused_distro_stats.launches = 0
     segment_sum.launches = 0
+    segment_sum.launches_by_plan.clear()
     lib_out = {name: run_solve_packed(s) for name, s in snaps.items()}
     server, port = serve_background("127.0.0.1", 0, device="cuda")
     client = SidecarClient("127.0.0.1", port)
@@ -415,13 +599,25 @@ def main() -> int:
             "fused_distro_stats": fused_distro_stats.launches,
             "segment_sum": segment_sum.launches,
         }
+        launches.update({f"segment_sum[{p}]": c
+                         for p, c in segment_sum.launches_by_plan.items()})
         n_solves = len(lib_out) + len(replies)
         log(f"main path: {n_solves} solves ({len(lib_out)} library calls, "
             f"{len(replies)} sidecar requests); launches {launches}")
-        check(launches["fused_distro_stats"] == n_solves,
-              "fused_distro_stats did not launch once per solve")
-        check(launches["segment_sum"] >= 3 * n_solves,
-              "segment_sum did not launch on every solve")
+        # per solve: one fused_distro_stats; segment_sum once on the task
+        # plan (both duration columns), once on the host plan, and on the
+        # pool plan once for the minimum mass, once per projection (the
+        # warm start and each Newton step, both columns) and once for the
+        # affinity's pool totals
+        iters = [capacity_iters(s) for s in snaps.values()] * 2
+        want = {
+            "fused_distro_stats": n_solves,
+            "segment_sum": sum(5 + c for c in iters),
+            "segment_sum[task]": n_solves,
+            "segment_sum[host]": n_solves,
+            "segment_sum[pool]": sum(3 + c for c in iters),
+        }
+        check(launches == want, f"launches {launches}, expected exactly {want}")
 
         # each reply equals the library call: two card runs, byte for byte
         for name in snaps:
@@ -495,8 +691,9 @@ def main() -> int:
     # ---- 4. result --------------------------------------------------------- #
     for r in rows:
         r["launches"] = launches[r["name"]]
+    # the byte and chain bounds behind bound_ms are in the log lines above
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "floor_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

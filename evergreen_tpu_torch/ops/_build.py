@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List, Mapping, Sequence, Tuple
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -36,11 +36,15 @@ def source_path(name: str) -> str:
     return os.path.join(CSRC_DIR, f"{name}.cu")
 
 
-def _lib_path(name: str) -> str:
+def _flags(defines: Mapping[str, int]) -> Tuple[str, ...]:
+    return tuple(f"-D{k}={v}" for k, v in sorted(defines.items()))
+
+
+def _lib_path(name: str, defines: Mapping[str, int]) -> str:
     h = hashlib.sha256()
     with open(source_path(name), "rb") as f:
         h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + _flags(defines)).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
@@ -63,33 +67,52 @@ def build(names: Iterable[str]) -> Dict[str, float]:
     The compiler's resource report (registers, shared memory, spills)
     lands in ``build/lib<name>.log``. Raises if any build fails."""
     names = list(names)
+    return dict(zip(names, _compile([(name, {}) for name in names])))
+
+
+def build_variants(variants: Sequence[Tuple[str, Mapping[str, int]]]) -> List[str]:
+    """Compile ``csrc/<name>.cu`` for each ``(name, defines)`` of
+    ``variants``, ``defines`` mapping macro names to values (passed as
+    ``-D``), all in parallel, to measure a kernel's design constants;
+    returns the libraries' paths, each with its compiler report beside it
+    (``.log``). Raises if any build fails."""
+    _compile(variants)
+    return [_lib_path(name, d) for name, d in variants]
+
+
+def _compile(jobs: Sequence[Tuple[str, Mapping[str, int]]]) -> List[float]:
     os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = _lib_path(name)
+    procs = []
+    for name, defines in jobs:
+        out = _lib_path(name, defines)
+        log_path = out[:-3] + ".log" if defines else _log_path(name)
         if os.path.exists(out):
+            procs.append(None)
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, source_path(name)]
-        with open(_log_path(name), "w") as log:  # the child keeps its own fd
+        cmd = [_nvcc(), *NVCC_FLAGS, *_flags(defines), "-o", tmp, source_path(name)]
+        with open(log_path, "w") as log:  # the child keeps its own fd
             proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
-        procs[name] = (proc, tmp, out, time.perf_counter())
-    seconds = {name: 0.0 for name in names}
+        procs.append((proc, tmp, out, log_path, time.perf_counter()))
+    seconds = [0.0] * len(jobs)
     failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
+    for i, job in enumerate(procs):
+        if job is None:
+            continue
+        proc, tmp, out, log_path, t0 = job
         rc = proc.wait()
-        seconds[name] = time.perf_counter() - t0
+        seconds[i] = time.perf_counter() - t0
         if rc == 0:
             os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
         else:
-            failed.append(name)
+            failed.append((jobs[i], log_path))
             if os.path.exists(tmp):
                 os.remove(tmp)
     if failed:
         msgs = []
-        for name in failed:
-            with open(_log_path(name)) as f:
-                msgs.append(f"{name}:\n{f.read()[-4000:]}")
+        for (name, defines), log_path in failed:
+            with open(log_path) as f:
+                msgs.append(f"{name} {' '.join(_flags(defines))}:\n{f.read()[-4000:]}")
         raise RuntimeError("nvcc failed for " + "\n".join(msgs))
     return seconds
 
@@ -104,7 +127,7 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build([name])
-            lib = _libs[name] = ctypes.CDLL(_lib_path(name))
+            lib = _libs[name] = ctypes.CDLL(_lib_path(name, {}))
         return lib
 
 

@@ -51,7 +51,8 @@ def _capacity_step_fns(
     pool_sum: Callable[[torch.Tensor], torch.Tensor],
 ) -> Tuple[Callable, Callable]:
     """``(newton, project)`` over a dict ``a`` of [D] columns and scalars.
-    ``pool_sum`` reduces a [D] column to its [P] per-pool sums."""
+    ``pool_sum`` reduces [D] columns ([k, D]) to their [P] per-pool sums
+    ([k, P])."""
 
     def project(x, a):
         lo, hi = a["lo"], a["hi"]
@@ -62,8 +63,7 @@ def _capacity_step_fns(
         # pools so the pool lands exactly on its (effective) quota
         xm = torch.where(elig, x, 0.0)
         lom = torch.where(elig, lo, 0.0)
-        p_sum = pool_sum(xm)
-        lo_sum = pool_sum(lom)
+        p_sum, lo_sum = pool_sum(torch.stack([xm, lom]))
         over = p_sum > a["quota"]
         f = torch.where(
             over,

@@ -74,14 +74,19 @@ def _check(name, t, dtypes, n, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-@functools.cache
-def _launch_fn():
-    fn = _build.load("distro_stats").fused_distro_stats_launch
+def bind(lib: ctypes.CDLL):
+    """The launch function of a build of ``csrc/distro_stats.cu``."""
+    fn = lib.fused_distro_stats_launch
     fn.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
     )
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _launch_fn():
+    return bind(_build.load("distro_stats"))
 
 
 def fused_distro_stats(
@@ -95,12 +100,27 @@ def fused_distro_stats(
     range, and the (D,) f32 duration threshold (callers clamp zeros to
     1.0). On a CPU tensor this is ``fused_distro_stats_plain``; on a CUDA
     tensor it launches the kernel or raises."""
-    dev = t_valid.device
-    if dev.type == "cpu":
+    if t_valid.device.type == "cpu":
         return fused_distro_stats_plain(
             t_valid, t_deps_met, t_expected_s, t_wait_dep_met_s, t_is_merge,
             d_task_offset, d_thresh,
         )
+    out = launch(
+        t_valid, t_deps_met, t_expected_s, t_wait_dep_met_s, t_is_merge,
+        d_task_offset, d_thresh,
+    )
+    fused_distro_stats.launches += 1
+    return out
+
+
+def launch(
+    t_valid, t_deps_met, t_expected_s, t_wait_dep_met_s, t_is_merge,
+    d_task_offset, d_thresh, fn=None,
+) -> Dict[str, torch.Tensor]:
+    """``fused_distro_stats`` on CUDA tensors through ``fn``, a build of the
+    kernel bound by ``bind`` (the package's own when None); the launch is
+    not counted. Raises on inputs the kernel does not take."""
+    dev = t_valid.device
     if dev.type != "cuda":
         raise ValueError(f"fused_distro_stats runs on cuda or cpu, not {dev}")
     n = t_valid.shape[0]
@@ -117,7 +137,8 @@ def fused_distro_stats(
         _check(name, t, dtypes, size, dev)
     if n >= 2**31:
         raise ValueError(f"{n} tasks exceed the kernel's int32 indexing")
-    fn = _launch_fn()
+    if fn is None:
+        fn = _launch_fn()
     out = torch.empty((D, N_STATS), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -128,7 +149,6 @@ def fused_distro_stats(
             out.data_ptr(), stream,
         )
     _build.check_launch(rc, "fused_distro_stats")
-    fused_distro_stats.launches += 1
     return _split(out)
 
 

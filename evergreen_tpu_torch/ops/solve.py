@@ -291,12 +291,14 @@ def allocator(a: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     t_thresh = thresh_d[t_distro]
 
     # ---- per-segment queue aggregates (dependency-met tasks only) --------- #
-    t_plan = segment_plan(t_seg, G, t_valid)
+    t_plan = segment_plan(t_seg, G, t_valid, name="task")
     cnt = _seg_sum(deps_met.to(_F32), t_seg, G)
-    exp_dur = segment_sum(torch.where(deps_met, dur, 0.0), t_plan)
     over = deps_met & (dur > t_thresh)
+    exp_dur, over_dur = segment_sum(
+        torch.stack([torch.where(deps_met, dur, 0.0), torch.where(over, dur, 0.0)]),
+        t_plan,
+    )
     over_cnt = _seg_sum(over.to(_F32), t_seg, G)
-    over_dur = segment_sum(torch.where(over, dur, 0.0), t_plan)
     wait_over = deps_met & (a["t_wait_dep_met_s"] > t_thresh)
     wait_over_cnt = _seg_sum(wait_over.to(_F32), t_seg, G)
     merge_met = deps_met & a["t_is_merge"]
@@ -322,7 +324,7 @@ def allocator(a: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     )
     frac = torch.where(guard, 0.0, frac)
     frac = torch.where(h_running, a["d_future_fraction"][h_distro] * frac, 0.0)
-    soon_free = segment_sum(frac, segment_plan(h_seg, G, h_valid))
+    soon_free = segment_sum(frac, segment_plan(h_seg, G, h_valid, name="host"))
     expected_free = free_cnt + torch.floor(soon_free)
 
     # ---- evalHostUtilization per segment ----------------------------------- #
@@ -451,7 +453,7 @@ def capacity_affinity(
     anchor = torch.clamp(existing + required, lo, hi)
 
     pool = a["d_pool"].long()
-    plan = segment_plan(pool, P, elig)
+    plan = segment_plan(pool, P, elig, name="pool")
 
     def pool_sum(x):
         return segment_sum(x, plan)

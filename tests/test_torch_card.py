@@ -70,13 +70,36 @@ def single_distro_case():
     return cols, np.array([0, N], np.int32), np.array([1.0], np.float32), [N]
 
 
+def sizes_case():
+    """Distros on and around the Hopper kernel's edges: empty, one task,
+    a warp less one, a warp, a warp and one, the 250 tasks of a config-3
+    distro, one past a full stride of 256, and 3·BLOCK+17."""
+    rng = np.random.default_rng(11)
+    counts = np.array([0, 1, 31, 32, 33, 250, 257, 3 * BLOCK + 17])
+    offs = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    N = int(offs[-1])
+    cols = dict(
+        t_valid=rng.random(N) < 0.9,
+        t_deps_met=rng.random(N) < 0.7,
+        t_expected_s=(rng.random(N) * 100).astype(np.float32),
+        t_wait_dep_met_s=(rng.random(N) * 100).astype(np.float32),
+        t_is_merge=rng.random(N) < 0.1,
+    )
+    th = (rng.random(len(counts)) * 50 + 1).astype(np.float32)
+    return cols, offs, th, counts
+
+
 CASES = [pytest.param(s, id=f"ragged{s}") for s in range(6)] + [
-    pytest.param("single", id="single")
+    pytest.param("single", id="single"), pytest.param("sizes", id="sizes"),
 ]
 
 
 def case(which):
-    return single_distro_case() if which == "single" else ragged_case(which)
+    if which == "single":
+        return single_distro_case()
+    if which == "sizes":
+        return sizes_case()
+    return ragged_case(which)
 
 
 def torch_args(cols, offs, th, device="cpu"):
@@ -110,16 +133,51 @@ def test_distro_stats_kernel_matches_plain(which, cuda_device):
         assert torch.equal(got[name], again[name]), name
 
 
-@pytest.mark.cuda
-def test_segment_kernel_matches_cpu_bitwise(cuda_device):
+def segment_case(which, k):
+    """(seg, n_seg, live, x [k, n]) with x zero off the live elements:
+    random segments with padding rows, one segment longer than the
+    kernel's staging tile (8,192 floats over the k columns), one
+    200-element segment among 8 (a config-3 pool sum), empty segments
+    (every fourth one, and all past the data)."""
     rng = np.random.default_rng(7)
-    seg = torch.as_tensor(rng.integers(0, 300, 20000))
-    x = torch.as_tensor((rng.random(20000) * 1000).astype(np.float32))
-    want = segment_sum(x, segment_plan(seg, 300))
+    if which == "random":
+        n, n_seg = 20000, 300
+        seg = rng.integers(0, n_seg, n)
+        live = rng.random(n) < 0.85
+    elif which == "long":
+        n, n_seg = 30000, 130
+        seg = np.where(rng.random(n) < 0.6, 3, rng.integers(0, n_seg, n))
+        live = np.ones(n, bool)
+    elif which == "pool":
+        n, n_seg = 224, 8
+        seg = np.full(n, 4)
+        live = np.arange(n) < 200
+    else:  # "empty"
+        n, n_seg = 5000, 400
+        seg = rng.integers(0, 100, n) * 4 % 300
+        live = rng.random(n) < 0.5
+    x = (rng.random((k, n)) * 10.0 ** rng.integers(-3, 4, (k, n))).astype(np.float32)
+    x = np.where(live, x, 0.0).astype(np.float32)
+    return torch.as_tensor(seg), n_seg, torch.as_tensor(live), torch.as_tensor(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("which", ["random", "long", "pool", "empty"])
+def test_segment_kernel_matches_cpu_bitwise(which, k, cuda_device):
+    seg, n_seg, live, x = segment_case(which, k)
+    want = segment_sum(x, segment_plan(seg, n_seg))
+    plan = segment_plan(seg.to(cuda_device), n_seg, live.to(cuda_device))
+    xd = x.to(cuda_device)
+    if k == 1:
+        xd, want = xd[0], want[0]
     before = segment_sum.launches
-    got = segment_sum(x.to(cuda_device), segment_plan(seg.to(cuda_device), 300))
+    got = segment_sum(xd, plan)
+    torch.cuda.synchronize()
     assert segment_sum.launches == before + 1
+    assert got.shape == want.shape
     assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, segment_sum(xd, plan))
 
 
 @pytest.mark.cuda
