@@ -26,7 +26,30 @@ raises and exits non-zero):
    launched exactly as often as the solves call it (in all, and per
    segment plan); then request and solve times and a profile of each
    solve (a chrome trace in OUT_DIR with ``--profile``);
-4. a JSON line of the kernels, the card's line, and the last line
+4. stacked rounds: config 3, seed 0, split over four shards by
+   ``build_sharded_snapshot`` (cold, and warm with memos: byte-identical),
+   one shard with a 48-step capacity page, one with 24, two with none.
+   ``StackedSolveCache().solve_blocks`` on the card, each block
+   byte-identical to its shard's ``_packed_solve`` at the stack's 48
+   steps, integer outputs equal to the CPU stack, and both kernels held
+   against their plain versions on each block as in phase 2; then one
+   round served by a ``SolverService`` on the card to four
+   ``SolverClient``s in ``spawn`` worker processes and seven to clients
+   in threads, every
+   round and client "stacked", every block byte-identical to the
+   in-process stack, each round launching 4 ``fused_distro_stats`` and
+   4 × (5 + 48) ``segment_sum``; ``serve_round`` wall times, beside the
+   in-process stack's and four sequential ``run_solve_packed``;
+5. the device mirror: config 3, seed 0, through a churn sequence (a cold
+   sync, a tick's time refresh, scattered rows, a step whose sparse part
+   covers over half of the f32 buffer, a change of layout), with the
+   spans taken by diffing the host buffers; after each step the mirror
+   is byte-identical to the host truth, the solve fed from it
+   byte-identical to a fresh upload's and launching its kernels once,
+   and the counters are as the spans predict; H2D bytes per step;
+6. a JSON line of the kernels (launches: the main path's, phase 3; the
+   stacked rounds and the mirror-fed solves count theirs on lines of
+   their own), the card's line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 ``--sweep`` runs phase 1, then, instead of the rest, times both kernels
@@ -56,6 +79,12 @@ FADD_CYCLES = 4
 
 SEED = 0
 CONFIG3 = (200, 50_000)
+#: shards of the stacked rounds, their capacity pages (steps; 0 = none)
+#: and the rounds served to workers in threads after the spawn round
+SHARDS = 4
+SHARD_PAGES = (48, 24, 0, 0)
+THREAD_ROUNDS = 7
+ROUND_TIMEOUT_S = 90.0
 SUM_RTOL = 1e-5
 CAP_TOL = dict(rtol=1e-5, atol=1e-6)
 F32_TOL = {
@@ -267,6 +296,58 @@ def segment_inputs(torch, np, a, d_thresh) -> dict:
     }
 
 
+def hold_distro_stats(torch, args) -> float:
+    """``fused_distro_stats`` on card tensors ``args`` against its plain
+    version and its CPU run (counts exact, sums within ``SUM_RTOL``), and
+    against a second launch (bit for bit); returns the max abs error."""
+    from evergreen_tpu_torch.ops.distro_stats import (
+        STAT_NAMES, fused_distro_stats, fused_distro_stats_plain,
+    )
+
+    got = fused_distro_stats(*args)
+    torch.cuda.synchronize()
+    want = fused_distro_stats_plain(*args)
+    cpu = fused_distro_stats(*(x.cpu() for x in args))
+    err = 0.0
+    for name in STAT_NAMES:
+        g, w = got[name], want[name]
+        err = max(err, float((g - w).abs().max()) if g.numel() else 0.0)
+        if name in STAT_SUMS:
+            torch.testing.assert_close(g, w, rtol=SUM_RTOL, atol=0.0)
+            torch.testing.assert_close(g.cpu(), cpu[name], rtol=SUM_RTOL, atol=0.0)
+        else:
+            check(torch.equal(g, w), f"fused_distro_stats {name} count differs")
+            check(torch.equal(g.cpu(), cpu[name]), f"{name} differs from CPU")
+    again = fused_distro_stats(*args)
+    for name in STAT_NAMES:
+        check(torch.equal(got[name], again[name]), f"{name} not repeatable")
+    return err
+
+
+def hold_segment_sum(torch, pname, seg, n_seg, live, x2):
+    """``segment_sum`` on plan ``pname`` at one and two columns against its
+    plain version (rtol ``SUM_RTOL``, atol 1e-6), the CPU's order (bit for
+    bit) and a second launch; returns the plan and the max abs error."""
+    from evergreen_tpu_torch.ops.segment import (
+        segment_plan, segment_sum, segment_sum_plain,
+    )
+
+    plan = segment_plan(seg, n_seg, live, name=pname)
+    cpu_plan = segment_plan(plan.seg.cpu(), n_seg)
+    err = 0.0
+    for x in (x2[0], x2):
+        got = segment_sum(x, plan)
+        torch.cuda.synchronize()
+        want = segment_sum_plain(x, plan)
+        torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=1e-6)
+        check(torch.equal(got.cpu(), segment_sum(x.cpu(), cpu_plan)),
+              f"segment_sum[{pname}] differs from the CPU's order")
+        check(torch.equal(got, segment_sum(x, plan)),
+              f"segment_sum[{pname}] not repeatable")
+        err = max(err, float((got - want).abs().max()))
+    return plan, err
+
+
 def sweep(torch, ds_args, plan_inputs) -> None:
     """Both kernels built with other values of their design constants
     (``DS_VARIANTS``, ``SS_VARIANTS``; the first of each is the source's
@@ -336,6 +417,433 @@ def sweep(torch, ds_args, plan_inputs) -> None:
     log("sweep: every build equal to the source's own")
 
 
+def reset_launches(*kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+        if hasattr(k, "launches_by_plan"):
+            k.launches_by_plan.clear()
+
+
+def read_launches(fds, ss) -> dict:
+    out = {"fused_distro_stats": fds.launches, "segment_sum": ss.launches}
+    out.update({f"segment_sum[{p}]": c for p, c in ss.launches_by_plan.items()})
+    return out
+
+
+def expected_launches(iters) -> dict:
+    """Launches of solves at capacity trip counts ``iters``: one
+    fused_distro_stats each; segment_sum once on the task plan (both
+    duration columns), once on the host plan, and on the pool plan once
+    for the minimum mass, once per projection (the warm start and each
+    Newton step) and once for the affinity's pool totals."""
+    return {
+        "fused_distro_stats": len(iters),
+        "segment_sum": sum(5 + c for c in iters),
+        "segment_sum[task]": len(iters),
+        "segment_sum[host]": len(iters),
+        "segment_sum[pool]": sum(3 + c for c in iters),
+    }
+
+
+def digest(out: dict) -> str:
+    """One shard's named outputs as a SHA-256 over names, dtypes and bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(out):
+        h.update(name.encode() + str(out[name].dtype).encode())
+        h.update(out[name].tobytes())
+    return h.hexdigest()
+
+
+def worker_loop(here, data_dir, shard, snap, cmds, replies):
+    """One shard's worker process: register its segment in the fleet
+    manifest, then for each (epoch, seq, timeout) on ``cmds`` publish
+    through ``SolverClient`` and wait for the leader's block, replying
+    with the outcome and the block's digest; None ends it. It never
+    touches the card: a fallback would solve on the CPU and report
+    "local"."""
+    sys.path.insert(0, here)
+    from evergreen_tpu_torch.runtime import manifest
+    from evergreen_tpu_torch.runtime.solver import SolverClient
+
+    def on_change(name, nbytes):
+        manifest.write_entry(data_dir, shard, pid=os.getpid(), sock="",
+                             generation=1, epoch=0, shm=name,
+                             shm_bytes=nbytes)
+
+    client = SolverClient(data_dir, shard, on_segment_change=on_change,
+                          device="cpu")
+    try:
+        while True:
+            cmd = cmds.get(timeout=2 * ROUND_TIMEOUT_S)
+            if cmd is None:
+                break
+            out = client.solve_fn(*cmd)(snap)
+            replies.put((shard, client.last_solve, client.last_cause,
+                         client.stale_accepted, digest(out)))
+    finally:
+        client.close(unlink=True)
+        manifest.remove_entry(data_dir, shard)
+
+
+def stacked_phase(torch, np, problem, cpu_out_tol, profile_dir) -> None:
+    """Phase 4."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    import threading
+
+    from evergreen_tpu_torch.ops.distro_stats import fused_distro_stats
+    from evergreen_tpu_torch.ops.packing import unpack
+    from evergreen_tpu_torch.ops.segment import segment_sum
+    from evergreen_tpu_torch.ops.solve import (
+        OUTPUT_SPEC, _packed_solve, capacity_iters, distro_stats_inputs,
+        result_to_host, run_solve_packed, split_outputs,
+    )
+    from evergreen_tpu_torch.parallel.sharded import (
+        StackedSolveCache, _blocks_cap_iters, build_sharded_snapshot,
+    )
+    from evergreen_tpu_torch.runtime.manifest import write_entry
+    from evergreen_tpu_torch.runtime.solver import (
+        SolverClient, SolverService, reap_orphan_segments,
+    )
+    from evergreen_tpu_torch.utils.benchgen import NOW, add_capacity_page
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    _, cold = build_sharded_snapshot(*problem, NOW, SHARDS)
+    cold_s = time.perf_counter() - t0
+    memos = {}
+    build_sharded_snapshot(*problem, NOW, SHARDS, memos=memos)
+    t0 = time.perf_counter()
+    subs, warm = build_sharded_snapshot(*problem, NOW, SHARDS, memos=memos)
+    warm_s = time.perf_counter() - t0
+    check(list(warm) == list(cold) and all(
+        warm[n].tobytes() == cold[n].tobytes() for n in cold),
+        "warm sharded build differs from the cold one")
+    for s, steps in zip(subs, SHARD_PAGES):
+        if steps:
+            add_capacity_page(s, steps)
+    blocks = {k: s.arrays for k, s in enumerate(subs)}
+    cap = _blocks_cap_iters(blocks)
+    check(cap == max(SHARD_PAGES), f"stack trip count {cap}")
+    check([capacity_iters(s) for s in subs] == list(SHARD_PAGES),
+          "shard pages not as set")
+    log(f"stacked: config 3 over {SHARDS} shards, shape key {subs[0].shape_key()}, "
+        f"tasks {[s.n_tasks for s in subs]}, distros {[s.n_distros for s in subs]}; "
+        f"sharded build cold {cold_s * 1e3:.0f} ms, warm {warm_s * 1e3:.0f} ms "
+        f"(host), warm == cold byte for byte; pages {list(SHARD_PAGES)} steps, "
+        f"stack trip count {cap}")
+    # both kernels held against their plain versions at the shard shapes,
+    # on each block unpacked on the card
+    ds_err, ss_err = 0.0, {}
+    for s in subs:
+        a = unpack(s.arena.buffers, s.arena.layout_key(), dev)
+        ds_args = distro_stats_inputs(a)
+        ds_err = max(ds_err, hold_distro_stats(torch, ds_args))
+        for pname, (seg, n_seg, live, x2, _) in segment_inputs(
+                torch, np, a, ds_args[6]).items():
+            _, err = hold_segment_sum(torch, pname, seg, n_seg, live, x2)
+            ss_err[pname] = max(ss_err.get(pname, 0.0), err)
+    log(f"stacked: on each of the {SHARDS} blocks, fused_distro_stats equal to "
+        f"plain (counts exact, sums rtol {SUM_RTOL}; max abs err {ds_err:.3g}) "
+        f"and segment_sum on its task, host and pool plans at k = 1, 2 bit-equal "
+        f"to the CPU and within rtol {SUM_RTOL} of plain (max abs err "
+        + ", ".join(f"{p} {e:.3g}" for p, e in ss_err.items()) + ")")
+    want_round = expected_launches([cap] * SHARDS)
+
+    # (a) the in-process stack on the card
+    cache = StackedSolveCache()
+    reset_launches(fused_distro_stats, segment_sum)
+    stack = cache.solve_blocks(blocks)
+    got = read_launches(fused_distro_stats, segment_sum)
+    check(got == want_round, f"stacked launches {got}, expected {want_round}")
+    for k, s in enumerate(subs):
+        own = split_outputs(result_to_host(_packed_solve(
+            s.arena.buffers, s.arena.layout_key(), cap, dev)), s.shape_key())
+        check(digest(own) == digest(stack[k]),
+              f"shard {k}: stacked block differs from its _packed_solve at {cap}")
+    cpu = StackedSolveCache("cpu").solve_blocks(blocks)
+    gaps = {}
+    for k in range(SHARDS):
+        for name, kind_, _ in OUTPUT_SPEC:
+            c, w = stack[k][name], cpu[k][name]
+            if kind_ == "i32":
+                check(np.array_equal(c, w), f"shard {k}: {name} differs from the CPU")
+            else:
+                np.testing.assert_allclose(c, w, err_msg=f"shard {k}: {name}",
+                                           **cpu_out_tol.get(name, dict(rtol=0.0, atol=0.0)))
+                rel = np.abs(c - w) / np.maximum(np.abs(w), 1e-30)
+                gaps[name] = max(gaps.get(name, 0.0), float(rel.max()) if len(c) else 0.0)
+        check(bool(all(np.isfinite(stack[k][n]).all() for n in stack[k])),
+              f"shard {k}: outputs not finite")
+    log(f"stacked (a): StackedSolveCache on the card, launches {got} (exact); "
+        f"each block byte-identical to its _packed_solve at {cap} steps; i32 "
+        "equal to the CPU stack, f32 max relative gap "
+        + ", ".join(f"{k}={v:.3g}" for k, v in gaps.items()))
+
+    # (b) the solver-leader plane: rounds to worker processes, then to
+    # clients in threads
+    data_dir = tempfile.mkdtemp(prefix="evg-chip-smoke-")
+    svc = SolverService(data_dir, SHARDS, lease_ttl_s=5.0,
+                        timeout_s=ROUND_TIMEOUT_S)
+    procs, cmds, clients = [], [], {}
+    want_digest = {k: digest(stack[k]) for k in stack}
+    try:
+        check(reap_orphan_segments(data_dir, SHARDS) == [], "orphan segments")
+        check(svc.acquire(timeout_s=30.0), "solver lease not acquired")
+        ctx = multiprocessing.get_context("spawn")
+        replies = ctx.Queue()
+        cmds = [ctx.Queue() for _ in range(SHARDS)]
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=worker_loop, args=(
+            HERE, data_dir, k, subs[k], cmds[k], replies)) for k in range(SHARDS)]
+        for p in procs:
+            p.start()
+        spawn_ms = []
+        for r in range(1 + THREAD_ROUNDS):
+            stamp = svc.stamp()
+            for q in cmds:
+                q.put((stamp["epoch"], stamp["seq"], stamp["timeout_s"]))
+            reset_launches(fused_distro_stats, segment_sum)
+            t1 = time.perf_counter()
+            outcome = svc.serve_round(list(range(SHARDS)), stamp["seq"])
+            spawn_ms.append((time.perf_counter() - t1) * 1e3)
+            got = read_launches(fused_distro_stats, segment_sum)
+            answers = []
+            deadline = time.monotonic() + ROUND_TIMEOUT_S
+            while len(answers) < SHARDS and time.monotonic() < deadline:
+                try:
+                    answers.append(replies.get(timeout=1.0))
+                except Exception:  # queue.Empty: see whether a worker died
+                    check(all(p.is_alive() for p in procs),
+                          f"a worker exited: {[p.exitcode for p in procs]}")
+            check(len(answers) == SHARDS, "a worker did not reply")
+            check(outcome == "stacked", f"process round {r} ended {outcome!r}")
+            check(got == want_round, f"process round launches {got}, expected {want_round}")
+            for shard, last, cause, stale, dig in answers:
+                check(last == "stacked", f"worker {shard} solved {last}:{cause}")
+                check(stale == 0, f"worker {shard} accepted a stale block")
+                check(dig == want_digest[shard],
+                      f"worker {shard}: block differs from the in-process stack")
+            if r == 0:
+                log(f"stacked (b): first round to {SHARDS} spawn worker processes "
+                    f"ended '{outcome}', every worker 'stacked', blocks "
+                    f"byte-identical to (a), launches {got} (exact); "
+                    f"{time.perf_counter() - t0:.2f} s wall with the workers' start")
+        for q in cmds:
+            q.put(None)
+        for p in procs:
+            p.join(timeout=60.0)
+        check(all(p.exitcode == 0 for p in procs), "a worker process failed")
+        log(f"stacked (b): {THREAD_ROUNDS} more rounds to the worker processes, "
+            f"every round and worker 'stacked', blocks byte-identical to (a), "
+            f"launches per round as above (exact); serve_round wall median "
+            f"{statistics.median(spawn_ms[1:]):.2f} ms, min {min(spawn_ms[1:]):.2f} ms")
+
+        for k in range(SHARDS):
+            def on_change(name, nbytes, k=k):
+                write_entry(data_dir, k, pid=os.getpid(), sock="", generation=2,
+                            epoch=svc.epoch, shm=name, shm_bytes=nbytes)
+            clients[k] = SolverClient(data_dir, k, on_segment_change=on_change)
+        round_ms = []
+        for _ in range(THREAD_ROUNDS):
+            stamp = svc.stamp()
+            results, threads = {}, []
+            for k, c in clients.items():
+                fn = c.solve_fn(stamp["epoch"], stamp["seq"], stamp["timeout_s"])
+                t = threading.Thread(
+                    target=lambda k=k, fn=fn: results.__setitem__(k, fn(subs[k])),
+                    daemon=True)
+                t.start()
+                threads.append(t)
+            reset_launches(fused_distro_stats, segment_sum)
+            t0 = time.perf_counter()
+            outcome = svc.serve_round(list(clients), stamp["seq"])
+            round_ms.append((time.perf_counter() - t0) * 1e3)
+            got = read_launches(fused_distro_stats, segment_sum)
+            for t in threads:
+                t.join(timeout=ROUND_TIMEOUT_S)
+            check(not any(t.is_alive() for t in threads), "a client thread hung")
+            check(outcome == "stacked", f"thread round ended {outcome!r}")
+            check(got == want_round, f"thread round launches {got}, expected {want_round}")
+            for k, c in clients.items():
+                check(c.last_solve == "stacked", f"client {k}: {c.last_solve}:{c.last_cause}")
+                check(digest(results[k]) == digest(stack[k]),
+                      f"client {k}: block differs from the in-process stack")
+        check(svc.round_outcomes == {"stacked": 1 + 2 * THREAD_ROUNDS},
+              f"round outcomes {svc.round_outcomes}")
+        check(all(c.stale_accepted == 0 and not c.fallbacks for c in clients.values()),
+              "a client fell back or accepted a stale block")
+    finally:
+        for c in clients.values():
+            c.close(unlink=True)
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10.0)
+        svc.stop()
+        shutil.rmtree(data_dir, ignore_errors=True)
+    log(f"stacked (b): {THREAD_ROUNDS} rounds to clients in threads (the leader's "
+        f"process), every round and client 'stacked', blocks byte-identical to "
+        f"(a), launches per round {want_round} (exact); serve_round wall median "
+        f"{statistics.median(round_ms):.2f} ms, min {min(round_ms):.2f} ms "
+        f"(collect + stacked solve + return)")
+
+    stack_ms, seq_ms = [], []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        cache.solve_blocks(blocks)
+        stack_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        for s in subs:
+            run_solve_packed(s)
+        seq_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"stacked: in-process solve_blocks ({SHARDS} x {cap} steps) wall median "
+        f"{statistics.median(stack_ms):.2f} ms, min {min(stack_ms):.2f} ms; "
+        f"{SHARDS} sequential run_solve_packed (own pages {list(SHARD_PAGES)}) "
+        f"median {statistics.median(seq_ms):.2f} ms, min {min(seq_ms):.2f} ms")
+    log("stacked: profile of one in-process solve_blocks")
+    profile_solve(torch, lambda: cache.solve_blocks(blocks),
+                  os.path.join(profile_dir, "stacked") if profile_dir else None)
+
+
+def diff_spans(np, before, after) -> dict:
+    """Each kind's [lo, hi) runs of elements whose bytes changed."""
+    spans = {}
+    for kind, new in after.items():
+        width = {1: np.uint8, 4: np.uint32}[new.itemsize]
+        idx = np.flatnonzero(before[kind].view(width) != new.view(width))
+        cuts = np.flatnonzero(np.diff(idx) > 1) + 1
+        starts = np.concatenate([[0], cuts]) if len(idx) else []
+        ends = np.concatenate([cuts, [len(idx)]]) if len(idx) else []
+        spans[kind] = [(int(idx[a]), int(idx[b - 1]) + 1)
+                       for a, b in zip(starts, ends)]
+    return spans
+
+
+def predict_mirror(spans, shapes, run_min) -> dict:
+    """The counter moves a delta sync of disjoint, non-adjacent ``spans``
+    should make: runs of ``run_min`` or more ship as slices, the rest
+    through the index vector unless it covers half of its kind or more,
+    which ships the kind whole."""
+    d = {"full_uploads": 0, "slice_rows": 0, "delta_rows": 0}
+    for kind, sp in spans.items():
+        sparse = sum(hi - lo for lo, hi in sp if hi - lo < run_min)
+        if 2 * sparse >= shapes[kind]:
+            d["full_uploads"] += 1
+        else:
+            d["slice_rows"] += sum(hi - lo for lo, hi in sp if hi - lo >= run_min)
+            d["delta_rows"] += sparse
+    return d
+
+
+def mirror_phase(torch, np, problem) -> None:
+    """Phase 5."""
+    from evergreen_tpu_torch.ops.distro_stats import fused_distro_stats
+    from evergreen_tpu_torch.ops.resident_ops import SLICE_RUN_MIN, DeviceMirror
+    from evergreen_tpu_torch.ops.segment import segment_sum
+    from evergreen_tpu_torch.ops.solve import (
+        _packed_solve, capacity_iters, result_to_host, run_solve_packed,
+        split_outputs,
+    )
+    from evergreen_tpu_torch.scheduler.snapshot import build_snapshot
+    from evergreen_tpu_torch.utils.benchgen import NOW
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED)
+    snap = build_snapshot(*problem, NOW)
+    t_f32 = [n for n, kind, _ in snap.arena.layout_key()
+             if kind == "f32" and n[:2] in ("t_", "u_")]
+
+    def time_refresh(s):
+        later = build_snapshot(*problem, NOW + 15.0)
+        for kind, buf in later.arena.buffers.items():
+            s.arena.buffers[kind][:] = buf
+        return s
+
+    def scattered(s):
+        a = s.arrays
+        rows = rng.choice(s.n_tasks, 200, replace=False)
+        a["t_priority"][rows[:100]] += 7
+        a["t_expected_s"][rows[100:]] *= 1.5
+        hosts = rng.choice(s.n_hosts, 100, replace=False)
+        a["h_free"][hosts] ^= True
+        return s
+
+    def dense_f32(s):
+        # three of every four elements of the task and unit f32 columns:
+        # short runs, over half of the f32 buffer in all
+        for name in t_f32:
+            col = s.arrays[name]
+            col[np.arange(len(col)) % 4 != 3] += 1.0
+        return s
+
+    steps = [
+        ("cold sync", lambda s: s),
+        ("time refresh (NOW + 15 s)", time_refresh),
+        ("300 scattered rows", scattered),
+        ("sparse part over half of f32", dense_f32),
+        ("layout change (N bucket doubled)", lambda s: build_snapshot(
+            *problem, NOW, force_dims={"N": 2 * s.shape_key()[0]})),
+    ]
+    # the first copy_/index_copy_ of each dtype loads its kernels: do it
+    # on a small mirror, so the steps' sync times are steady ones
+    small = {k: np.zeros(256, v.dtype) for k, v in snap.arena.buffers.items()}
+    warm = DeviceMirror()
+    warm.sync(small, None)
+    warm.sync(small, {k: [(0, 2 * SLICE_RUN_MIN), (200, 201)] for k in small})
+    mirror = DeviceMirror()
+    full_bytes = sum(v.nbytes for v in snap.arena.buffers.values())
+    prev = None
+    for label, step in steps:
+        snap = step(snap)
+        truth = snap.arena.buffers
+        shapes = {k: len(v) for k, v in truth.items()}
+        same = prev is not None and shapes == {k: len(v) for k, v in prev.items()}
+        spans = diff_spans(np, prev, truth) if same else None
+        before = {k: getattr(mirror, k) for k in ("full_uploads", "slice_rows",
+                                                    "delta_rows", "bytes_uploaded")}
+        want = (predict_mirror(spans, shapes, SLICE_RUN_MIN) if spans is not None
+                else {"full_uploads": 1, "slice_rows": 0, "delta_rows": 0})
+        t0 = time.perf_counter()
+        bufs = mirror.sync(truth, spans)
+        torch.cuda.synchronize(dev)
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        moved = {k: getattr(mirror, k) - v for k, v in before.items()}
+        check({k: moved[k] for k in want} == want,
+              f"mirror {label}: counters moved {moved}, predicted {want}")
+        for kind, src in truth.items():
+            check(bufs[kind].device == dev
+                  and bufs[kind].cpu().numpy().tobytes() == src.tobytes(),
+                  f"mirror {label}: {kind} differs from the host truth")
+        iters = capacity_iters(snap)
+        reset_launches(fused_distro_stats, segment_sum)
+        fed = result_to_host(_packed_solve(bufs, snap.arena.layout_key(), iters, dev))
+        got = read_launches(fused_distro_stats, segment_sum)
+        check(got == expected_launches([iters]),
+              f"mirror {label}: launches {got}")
+        fresh = run_solve_packed(snap)
+        check(digest(split_outputs(fed, snap.shape_key())) == digest(fresh),
+              f"mirror {label}: solve differs from a fresh upload's")
+        n_spans = sum(len(v) for v in spans.values()) if spans else 0
+        log(f"mirror {label}: {n_spans} spans, counters moved "
+            f"{ {k: moved[k] for k in want} } (as predicted); H2D "
+            f"{moved['bytes_uploaded']} B against a full upload's "
+            f"{sum(v.nbytes for v in truth.values())} B; sync {sync_ms:.2f} ms wall; "
+            f"mirror == truth, its solve == a fresh upload's (launches {got})")
+        prev = {k: v.copy() for k, v in truth.items()}
+    # each kind of update ran: slices and an index vector on the time
+    # refresh, full uploads cold, for the dense f32 step and the layout
+    check(mirror.full_uploads == 3 and mirror.slice_rows > 0 and mirror.delta_rows > 0,
+          "the churn sequence did not exercise every kind of update")
+    log(f"mirror: totals full_uploads {mirror.full_uploads}, slice_rows "
+        f"{mirror.slice_rows}, delta_rows {mirror.delta_rows}, "
+        f"{mirror.bytes_uploaded} B H2D over {len(steps)} steps (config 3 "
+        f"arena {full_bytes} B)")
+
+
 def main() -> int:
     profile_dir = None
     sweep_mode = sys.argv[1:] == ["--sweep"]
@@ -365,7 +873,6 @@ def main() -> int:
     from evergreen_tpu_torch.api.sidecar import SidecarClient, serve_background
     from evergreen_tpu_torch.ops import _build
     from evergreen_tpu_torch.ops.distro_stats import (
-        STAT_NAMES,
         fused_distro_stats,
         fused_distro_stats_plain,
     )
@@ -467,24 +974,7 @@ def main() -> int:
                 "t_valid", "t_deps_met", "t_expected_s", "t_wait_dep_met_s",
                 "t_is_merge")
         ) + (torch.as_tensor(offs).to(dev), torch.as_tensor(th).to(dev)))
-    ds_err = 0.0
-    for args in ds_cases:
-        got = fused_distro_stats(*args)
-        torch.cuda.synchronize()
-        want = fused_distro_stats_plain(*args)
-        cpu = fused_distro_stats(*(x.cpu() for x in args))
-        for name in STAT_NAMES:
-            g, w = got[name], want[name]
-            ds_err = max(ds_err, float((g - w).abs().max()) if g.numel() else 0.0)
-            if name in ("d_expected_dur_s", "d_over_dur_s"):
-                torch.testing.assert_close(g, w, rtol=SUM_RTOL, atol=0.0)
-                torch.testing.assert_close(g.cpu(), cpu[name], rtol=SUM_RTOL, atol=0.0)
-            else:
-                check(torch.equal(g, w), f"fused_distro_stats {name} count differs")
-                check(torch.equal(g.cpu(), cpu[name]), f"{name} differs from CPU")
-        again = fused_distro_stats(*args)
-        for name in STAT_NAMES:
-            check(torch.equal(got[name], again[name]), f"{name} not repeatable")
+    ds_err = max(hold_distro_stats(torch, args) for args in ds_cases)
     log(f"fused_distro_stats: equal to plain on {len(ds_cases)} inputs "
         f"(counts exact, sums rtol {SUM_RTOL}); max abs err {ds_err:.3g}")
 
@@ -523,21 +1013,9 @@ def main() -> int:
     # the kernels line takes the column count the solve uses most there
     plan_inputs = segment_inputs(torch, np, a, ds_args[6])
     for pname, (seg, n_seg, live, x2, main_k) in plan_inputs.items():
-        plan = segment_plan(seg, n_seg, live, name=pname)
-        cpu_plan = segment_plan(plan.seg.cpu(), n_seg)
+        plan, err = hold_segment_sum(torch, pname, seg, n_seg, live, x2)
         n_live = int(plan.offsets[-1])
         longest = int((plan.offsets[1:] - plan.offsets[:-1]).max())
-        err = 0.0
-        for x in (x2[0], x2):
-            got = segment_sum(x, plan)
-            torch.cuda.synchronize()
-            want = segment_sum_plain(x, plan)
-            torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=1e-6)
-            check(torch.equal(got.cpu(), segment_sum(x.cpu(), cpu_plan)),
-                  f"segment_sum[{pname}] differs from the CPU's order")
-            check(torch.equal(got, segment_sum(x, plan)),
-                  f"segment_sum[{pname}] not repeatable")
-            err = max(err, float((got - want).abs().max()))
         plan_ms = device_ms(torch, lambda: segment_plan(seg, n_seg, live))
         chain_ms = 1e3 * longest * FADD_CYCLES / (sm_mhz * 1e6)
         by_k = {}
@@ -582,9 +1060,7 @@ def main() -> int:
     for name, s in snaps.items():
         log(f"{name}: capacity iterations {capacity_iters(s)}")
 
-    fused_distro_stats.launches = 0
-    segment_sum.launches = 0
-    segment_sum.launches_by_plan.clear()
+    reset_launches(fused_distro_stats, segment_sum)
     lib_out = {name: run_solve_packed(s) for name, s in snaps.items()}
     server, port = serve_background("127.0.0.1", 0, device="cuda")
     client = SidecarClient("127.0.0.1", port)
@@ -595,28 +1071,11 @@ def main() -> int:
             replies[name] = split_outputs(
                 np.concatenate([i32, f32.view(np.int32)]), s.shape_key()
             )
-        launches = {
-            "fused_distro_stats": fused_distro_stats.launches,
-            "segment_sum": segment_sum.launches,
-        }
-        launches.update({f"segment_sum[{p}]": c
-                         for p, c in segment_sum.launches_by_plan.items()})
+        launches = read_launches(fused_distro_stats, segment_sum)
         n_solves = len(lib_out) + len(replies)
         log(f"main path: {n_solves} solves ({len(lib_out)} library calls, "
             f"{len(replies)} sidecar requests); launches {launches}")
-        # per solve: one fused_distro_stats; segment_sum once on the task
-        # plan (both duration columns), once on the host plan, and on the
-        # pool plan once for the minimum mass, once per projection (the
-        # warm start and each Newton step, both columns) and once for the
-        # affinity's pool totals
-        iters = [capacity_iters(s) for s in snaps.values()] * 2
-        want = {
-            "fused_distro_stats": n_solves,
-            "segment_sum": sum(5 + c for c in iters),
-            "segment_sum[task]": n_solves,
-            "segment_sum[host]": n_solves,
-            "segment_sum[pool]": sum(3 + c for c in iters),
-        }
+        want = expected_launches([capacity_iters(s) for s in snaps.values()] * 2)
         check(launches == want, f"launches {launches}, expected exactly {want}")
 
         # each reply equals the library call: two card runs, byte for byte
@@ -688,7 +1147,11 @@ def main() -> int:
             os.path.join(profile_dir, name) if profile_dir else None,
         )
 
-    # ---- 4. result --------------------------------------------------------- #
+    # ---- 4. stacked rounds; 5. the device mirror ------------------------- #
+    stacked_phase(torch, np, problems["seed0"], F32_TOL, profile_dir)
+    mirror_phase(torch, np, problems["seed0"])
+
+    # ---- 6. result --------------------------------------------------------- #
     for r in rows:
         r["launches"] = launches[r["name"]]
     # the byte and chain bounds behind bound_ms are in the log lines above

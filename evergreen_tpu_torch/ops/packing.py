@@ -66,12 +66,17 @@ def unpack(bufs: Dict, layout_key: Tuple, device) -> Dict[str, torch.Tensor]:
     """Slice the three buffers into the named fields, on ``device``.
 
     ``bufs`` maps "f32"/"i32"/"u8" to numpy arrays, each uploaded here in
-    one host→device copy. Offsets come from ``layout_key`` alone; u8
+    one host→device copy, or to tensors, which are used in place when
+    they already lie on ``device`` (a device mirror's resident buffers)
+    and copied once otherwise. Offsets come from ``layout_key`` alone; u8
     fields come back as bool (nonzero ⇔ True), the others as views of the
-    uploaded buffer."""
+    buffer. On the CPU a numpy buffer is used in place too, so a caller
+    whose buffer may change under the solve (a shared-memory segment)
+    hands over a copy."""
     dev = torch.device(device)
     tens = {
-        kind: torch.as_tensor(np.ascontiguousarray(buf)).to(dev)
+        kind: (buf if isinstance(buf, torch.Tensor)
+               else torch.as_tensor(np.ascontiguousarray(buf))).to(dev)
         for kind, buf in bufs.items()
     }
     offsets = {"f32": 0, "i32": 0, "u8": 0}

@@ -616,6 +616,32 @@ def _packed_solve(bufs: Dict, layout_key, cap_iters: int, device) -> torch.Tenso
     return torch.cat(parts)
 
 
+@torch.inference_mode()
+def dispatch_stacked_solve(staging: Dict, layout_key, cap_iters: int,
+                           device) -> torch.Tensor:
+    """Enqueue the solves of S blocks of one layout and return their
+    [S, n_out] fused result buffers on ``device`` without waiting.
+
+    ``staging`` maps each kind to an [S, n_kind] numpy buffer whose row s
+    is block s's typed region buffer; each goes up in one host→device
+    copy. Every row's ``solve(a, cap_iters)`` is then enqueued back to
+    back, with no host sync in between, and the rows' results stacked.
+    ``cap_iters`` is the same for every block: the one-card form of the
+    JAX package's stacked ``shard_map`` program, which has no
+    collectives."""
+    dev = torch.device(device)
+    tens = {
+        kind: torch.as_tensor(np.ascontiguousarray(buf)).to(dev)
+        for kind, buf in staging.items()
+    }
+    n_blocks = next(iter(tens.values())).shape[0]
+    return torch.stack([
+        _packed_solve({k: t[s] for k, t in tens.items()}, layout_key,
+                      cap_iters, dev)
+        for s in range(n_blocks)
+    ])
+
+
 def split_packed(buf_np: np.ndarray, dims: Dict) -> Tuple[np.ndarray, np.ndarray]:
     """Split the fused result buffer into (i32 half, f32 half)."""
     i32_total = sum(dims[dim] for _, kind, dim in OUTPUT_SPEC if kind == "i32")

@@ -1,7 +1,7 @@
 """Snapshot builder: domain documents → the packed solve's arena buffers.
 
 Counterpart of ``evergreen_tpu/scheduler/snapshot.py`` without its
-memos, arena pool and native packer: one host-side pass that fills
+membership memo, arena pool and native packer: one host-side pass that fills
 
   * task feature arrays [N]   (priority, requester flags, durations, …)
   * unit-membership edges [M] (task → planner unit)
@@ -418,8 +418,20 @@ def build_snapshot(
     running_estimates: Dict[str, RunningTaskEstimate],
     deps_met: Dict[str, bool],
     now: float,
+    force_dims: Dict[str, int] = None,
+    dims_memo: Dict[str, int] = None,
 ) -> Snapshot:
-    """Pack one scheduling problem into a fresh arena."""
+    """Pack one scheduling problem into a fresh arena.
+
+    ``force_dims`` is a floor on the bucket sizes, maxed with the natural
+    buckets: the sharded build pads every shard to common dims so the
+    blocks stack, and a shard that has grown past the floor pads up
+    instead of overflowing.
+
+    ``dims_memo`` (caller-owned, kept across ticks) adds hysteresis: a
+    dimension keeps its previous bucket while the live count still fits
+    and the bucket is at most 4x the natural one, so a count oscillating
+    across a bucket edge does not change the layout every few ticks."""
     n_d = len(distros)
 
     # ---- flatten tasks + build planner unit memberships ------------------- #
@@ -517,6 +529,14 @@ def build_snapshot(
         k: _bucket(c, minimum=8 if k == "D" else 32)
         for k, c in counts.items()
     }
+    if force_dims is not None:
+        dims = {k: max(int(force_dims.get(k, 0)), v) for k, v in dims.items()}
+    elif dims_memo is not None:
+        for k, c in counts.items():
+            prev = dims_memo.get(k, 0)
+            if prev >= c and prev <= 4 * dims[k]:
+                dims[k] = prev
+        dims_memo.update(dims)
     N, U, G, D = dims["N"], dims["U"], dims["G"], dims["D"]
 
     arena = arena_for_dims(dims)

@@ -1,0 +1,118 @@
+"""Seam-based deterministic fault injection (tests only).
+
+The part of ``evergreen_tpu/utils/faults.py`` that the solver-leader
+plane and its lease need. Each instrumented seam calls ``fire("<seam>")``;
+with no plan installed that is one global read and a return. Seams:
+
+  ``solver.round``    the leader's serve_round entry (runtime/solver.py)
+  ``solver.publish``  after the leader has collected the publications
+  ``solver.solve``    after the stacked solve, before any result write
+  ``solver.return``   after the first shard's result block is written
+  ``lease.renew``     a lease renewal (storage/lease.py); ``lost``
+                      reports the lease stolen
+  ``lease.write``     mid-write of a lease file (storage/integrity.py)
+  ``manifest.write``  mid-write of a fleet manifest entry
+
+Fault kinds: ``raise`` (the configured exception, default FaultError),
+``hang``/``delay`` (sleep ``delay_s``), ``crash`` (``os._exit(86)``),
+``call`` (run ``fn`` after an optional sleep), ``enospc``/``eio``
+(``OSError`` with that errno); any other kind is returned to the seam as
+a directive string (``short``, ``bitrot``, ``lost``, ...).
+"""
+from __future__ import annotations
+
+import errno
+import os
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+
+class FaultError(RuntimeError):
+    """Default injected failure."""
+
+
+class Fault:
+    """One injected fault: what happens when its schedule slot fires."""
+
+    def __init__(
+        self,
+        kind: str = "raise",
+        exc: Optional[BaseException] = None,
+        delay_s: float = 0.0,
+        fn: Optional[Callable[[], None]] = None,
+    ) -> None:
+        self.kind = kind
+        self.exc = exc
+        self.delay_s = delay_s
+        self.fn = fn
+
+    def __repr__(self) -> str:
+        return f"Fault({self.kind!r}, delay_s={self.delay_s})"
+
+
+class FaultPlan:
+    """Deterministic schedule of faults keyed by (seam, call index)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._at: Dict[str, Dict[int, Fault]] = {}
+        self._calls: Dict[str, int] = {}
+        #: audit trail: (seam, call index, kind) per fired fault
+        self.fired: List[Tuple[str, int, str]] = []
+
+    def at(self, seam: str, call_index: int, fault: Fault) -> "FaultPlan":
+        """Fire ``fault`` on the seam's ``call_index``-th call (0-based)."""
+        self._at.setdefault(seam, {})[call_index] = fault
+        return self
+
+    def fire(self, seam: str) -> Optional[str]:
+        with self._lock:
+            idx = self._calls.get(seam, 0)
+            self._calls[seam] = idx + 1
+            fault = self._at.get(seam, {}).get(idx)
+            if fault is None:
+                return None
+            self.fired.append((seam, idx, fault.kind))
+        if fault.kind == "raise":
+            raise fault.exc if fault.exc is not None else FaultError(
+                f"injected fault at {seam}"
+            )
+        if fault.kind in ("hang", "delay"):
+            time.sleep(fault.delay_s)
+            return None
+        if fault.kind == "crash":
+            os._exit(86)
+        if fault.kind == "call":
+            if fault.delay_s:
+                time.sleep(fault.delay_s)
+            if fault.fn is not None:
+                fault.fn()
+            return None
+        if fault.kind == "enospc":
+            raise OSError(errno.ENOSPC, f"injected ENOSPC at {seam}")
+        if fault.kind == "eio":
+            raise OSError(errno.EIO, f"injected EIO at {seam}")
+        return fault.kind
+
+
+_active: Optional[FaultPlan] = None
+
+
+def install(plan: FaultPlan) -> FaultPlan:
+    global _active
+    _active = plan
+    return plan
+
+
+def uninstall() -> None:
+    global _active
+    _active = None
+
+
+def fire(seam: str) -> Optional[str]:
+    """The seam hook. No plan installed → one global read and out."""
+    plan = _active
+    if plan is None:
+        return None
+    return plan.fire(seam)

@@ -6,8 +6,10 @@ dependencies:
 
     python -m pytest --noconftest -q tests/test_torch_card.py
 
-Without a card every test here skips (a CUDA kernel has no CPU mode);
-the ragged-case builders are shared with tests/test_torch_distro_stats.py.
+Without a card every test here skips (a CUDA kernel has no CPU mode),
+except the check that the entry points raise without a card unless they
+are given ``device="cpu"``; the ragged-case helpers are shared with
+tests/test_torch_distro_stats.py.
 """
 import numpy as np
 import pytest
@@ -20,7 +22,20 @@ from evergreen_tpu_torch.ops.distro_stats import (  # noqa: E402
     fused_distro_stats_plain,
 )
 from evergreen_tpu_torch.ops.segment import segment_plan, segment_sum  # noqa: E402
-from evergreen_tpu_torch.ops.solve import run_solve_packed  # noqa: E402
+from evergreen_tpu_torch.ops.resident_ops import DeviceMirror  # noqa: E402
+from evergreen_tpu_torch.ops.solve import (  # noqa: E402
+    _packed_solve,
+    run_solve_packed,
+    split_outputs,
+)
+from evergreen_tpu_torch.parallel.sharded import (  # noqa: E402
+    StackedSolveCache,
+    build_sharded_snapshot,
+)
+from evergreen_tpu_torch.runtime.solver import (  # noqa: E402
+    SolverClient,
+    SolverService,
+)
 from evergreen_tpu_torch.scheduler.snapshot import build_snapshot  # noqa: E402
 from evergreen_tpu_torch.utils.benchgen import (  # noqa: E402
     NOW,
@@ -202,3 +217,99 @@ def test_card_solve_matches_cpu(capacity, cuda_device):
     again = run_solve_packed(snap)
     for name in card:
         assert card[name].tobytes() == again[name].tobytes(), name
+
+
+@pytest.mark.cuda
+def test_card_mirror_updates_equal_a_full_upload(cuda_device):
+    """Slice runs (``copy_``) and the sparse part (``index_copy_``),
+    with duplicate and overlapping spans, leave the resident tensors
+    equal to the truth and to a fresh upload."""
+    rng = np.random.default_rng(6)
+    truth = {
+        "f32": rng.random(1000).astype(np.float32),
+        "i32": (rng.random(700) * 100).astype(np.int32),
+        "u8": (rng.random(300) * 2).astype(np.uint8),
+    }
+    m = DeviceMirror()
+    first = m.sync(truth, None)
+    assert all(t.device.type == "cuda" for t in first.values())
+    truth["f32"][100:400] += 1.0  # a run of 300, given in two overlapping spans
+    truth["f32"][5:9] -= 2.0
+    truth["i32"][[3, 4, 600]] = -7
+    truth["u8"][10:20] ^= 1
+    spans = {"f32": [(100, 300), (250, 400), (5, 9), (6, 8), (5, 9)],
+             "i32": [(3, 5), (3, 4), (600, 601)], "u8": [(10, 20)]}
+    out = m.sync(truth, spans)
+    assert m.full_uploads == 1 and m.slice_rows == 300
+    assert m.delta_rows == 4 + 3 + 10
+    for kind, t in out.items():
+        assert t is first[kind]  # updated in place
+        assert t.cpu().numpy().tobytes() == truth[kind].tobytes(), kind
+        fresh = DeviceMirror().sync(truth, None)[kind]
+        assert torch.equal(t, fresh), kind
+    # a sparse part over half of u8 (two of every three): a full upload
+    truth["u8"][np.arange(300) % 3 != 2] ^= 1
+    out = m.sync(truth, {"u8": [(i, i + 2) for i in range(0, 300, 3)] * 2})
+    assert m.full_uploads == 2
+    assert out["u8"].cpu().numpy().tobytes() == truth["u8"].tobytes()
+
+
+@pytest.mark.cuda
+def test_card_stacked_solve_equals_per_shard_solves(cuda_device):
+    """Each block of a stacked solve on the card is byte-identical to its
+    own ``_packed_solve`` at the stack's trip count (48: pages of 48 and
+    24 steps and two shards without one), and its integer outputs equal
+    the CPU stack's."""
+    problem = generate_problem(8, 2000, seed=41, task_group_fraction=0.3,
+                               hosts_per_distro=3)
+    subs, _ = build_sharded_snapshot(*problem, NOW, 4)
+    add_capacity_page(subs[0], 48)
+    add_capacity_page(subs[1], 24)
+    blocks = {k: s.arrays for k, s in enumerate(subs)}
+    got = StackedSolveCache().solve_blocks(blocks)
+    cpu = StackedSolveCache("cpu").solve_blocks(blocks)
+    for k, s in enumerate(subs):
+        own = _packed_solve(s.arena.buffers, s.arena.layout_key(), 48,
+                            cuda_device).cpu().numpy()
+        own = split_outputs(own, s.shape_key())
+        for name, w in own.items():
+            assert got[k][name].tobytes() == w.tobytes(), (k, name)
+            if w.dtype.kind == "i":
+                np.testing.assert_array_equal(got[k][name], cpu[k][name])
+            else:
+                np.testing.assert_allclose(got[k][name], cpu[k][name],
+                                           rtol=1e-5, atol=1e-6)
+
+
+def test_entry_points_need_a_card_unless_cpu(tmp_path):
+    """``SolverService``, ``StackedSolveCache``, ``DeviceMirror.sync``
+    and ``SolverClient``'s local fallback run on the card by default and
+    raise without one; ``device="cpu"`` runs them on the CPU."""
+    truth = {"f32": np.zeros(4, np.float32)}
+    snap = build_snapshot(*generate_problem(3, 40, seed=1), NOW)
+    client = SolverClient(str(tmp_path), 0)
+    cpu_client = SolverClient(str(tmp_path), 1, device="cpu")
+    try:
+        if torch.cuda.is_available():
+            svc = SolverService(str(tmp_path), 2)
+            assert svc.device.type == "cuda"
+            assert StackedSolveCache().device.type == "cuda"
+            assert DeviceMirror().sync(truth, None)["f32"].device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                SolverService(str(tmp_path), 2)
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                StackedSolveCache()
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                DeviceMirror().sync(truth, None)
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                client.solve_fn(1, 1, 0.05)(snap)
+            assert client.fallbacks == {"timeout": 1}
+        assert SolverService(str(tmp_path), 2, device="cpu").device.type == "cpu"
+        assert DeviceMirror(device="cpu").sync(truth, None)["f32"].device.type == "cpu"
+        out = cpu_client.solve_fn(1, 1, 0.05)(snap)
+        want = run_solve_packed(snap, device="cpu")
+        assert all(out[n].tobytes() == want[n].tobytes() for n in want)
+    finally:
+        client.close(unlink=True)
+        cpu_client.close(unlink=True)

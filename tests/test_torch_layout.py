@@ -77,6 +77,50 @@ def test_constants_match_the_jax_package():
         assert t_snapshot._bucket(n, 8) == j_snapshot._bucket(n, 8), n
 
 
+def test_solver_plane_constants_match_the_jax_package():
+    """The segment wire format, the stacked keys, the mirror's run length
+    and the lease payload are shared with the JAX package."""
+    from evergreen_tpu.ops import resident_ops as j_res
+    from evergreen_tpu.parallel import sharded as j_sharded
+    from evergreen_tpu.runtime import manifest as j_manifest
+    from evergreen_tpu.runtime import solver as j_solver
+    from evergreen_tpu.storage import lease as j_lease
+
+    from evergreen_tpu_torch.ops import resident_ops as t_res
+    from evergreen_tpu_torch.parallel import sharded as t_sharded
+    from evergreen_tpu_torch.runtime import manifest as t_manifest
+    from evergreen_tpu_torch.runtime import solver as t_solver
+    from evergreen_tpu_torch.storage import lease as t_lease
+
+    slots = [n for n in dir(j_solver) if n.startswith(("H_", "S_"))]
+    assert slots and slots == [
+        n for n in dir(t_solver) if n.startswith(("H_", "S_"))
+    ]
+    for name in slots + ["_MAGIC", "_VERSION", "HEADER_SLOTS",
+                         "HEADER_BYTES", "DECLINE_CAUSES", "_DIM_NAMES"]:
+        assert getattr(t_solver, name) == getattr(j_solver, name), name
+    assert t_res.SLICE_RUN_MIN == j_res.SLICE_RUN_MIN
+    assert t_sharded._IN_KEYS == j_sharded._IN_KEYS
+    assert t_sharded._OUT_KEYS == j_sharded._OUT_KEYS
+    assert t_manifest.FLEET_DIR == j_manifest.FLEET_DIR
+    assert t_solver.segment_name("/x/y", 3) == j_solver.segment_name("/x/y", 3)
+    assert t_lease.solver_lease_path("/d") == j_lease.solver_lease_path("/d")
+    payloads = []
+    for cls in (t_lease.FileLease, j_lease.FileLease):
+        lease = cls.__new__(cls)
+        lease.owner_id, lease.epoch = "o", 3
+        payloads.append(lease._payload())
+    assert list(payloads[0]) == list(payloads[1]) == [
+        "owner", "pid", "at", "epoch"]
+    assert t_lease.FileLease._STEAL_ATTEMPTS == j_lease.FileLease._STEAL_ATTEMPTS
+    for dims in ({"N": 64, "M": 96, "U": 48, "G": 40, "H": 32, "D": 8},
+                 {"N": 57344, "M": 65536, "U": 40960, "G": 10240,
+                  "H": 4096, "D": 224}):
+        assert t_solver.sizes_for_dims(dims) == j_solver.sizes_for_dims(dims)
+        assert (t_solver.out_elems_for_dims(dims)
+                == j_solver.out_elems_for_dims(dims))
+
+
 def _assert_same_arena(js, ts):
     assert ts.shape_key() == js.shape_key()
     assert ts.arena.layout_key() == js.arena.layout_key()
@@ -172,7 +216,7 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules if banned(m))
 assert not bad, bad
-assert len(names) >= 15, names
+assert len(names) >= 32, names
 print("ok", len(names))
 """
 
