@@ -47,9 +47,21 @@ raises and exits non-zero):
    is byte-identical to the host truth, the solve fed from it
    byte-identical to a fresh upload's and launching its kernels once,
    and the counters are as the spans predict; H2D bytes per step;
-6. a JSON line of the kernels (launches: the main path's, phase 3; the
-   stacked rounds and the mirror-fed solves count theirs on lines of
-   their own), the card's line, and the last line
+6. the tick's planning half from a store: config 3, seed 0, inserted
+   into the port's ``Store`` with every distro opted into the capacity
+   program (quota 5,400 mock hosts, fleet intent budget 500); the chain
+   of the tick (intent budget, capacity page, ``build_snapshot``,
+   ``_solve_bounded``, ``_unpack_solve``, the alias and single-task
+   rules, ``CapacityPlane.apply``) on the card with ``fused="auto"``,
+   then twice with ``fused="two_call"`` (once under a solve deadline),
+   each run equal to the same chain on the CPU, planned by the device
+   solve with no fallback counter moving and its kernel launches
+   exact; the fused and two-call runs give the same targets, and the
+   two-call runs are byte-identical; then wall times of each step and
+   of ``run_capacity_solve`` alone;
+7. a JSON line of the kernels (launches: the main path's, phase 3; the
+   stacked rounds, the mirror-fed solves and the planning chain count
+   theirs on lines of their own), the card's line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 ``--sweep`` runs phase 1, then, instead of the rest, times both kernels
@@ -844,6 +856,266 @@ def mirror_phase(torch, np, problem) -> None:
         f"arena {full_bytes} B)")
 
 
+#: phase 6: the capacity settings bench.py's capacity arm gives config 3,
+#: and the solve deadline of the second two-call run
+PLAN_QUOTA = {"mock": 5400}
+PLAN_BUDGET = 500
+PLAN_DEADLINE_S = 5.0
+#: provenance floats are rounded to these units before they are kept
+ROUNDED = {"demand_s": 0.1, "fractional": 1e-3, "demand_term": 1e-4,
+           "price_term": 1e-4, "churn_term": 1e-4, "value": 1e-4,
+           "priority_term": 1e-4, "rank_term": 1e-4,
+           "time_in_queue_term": 1e-4}
+RUNGS = ("fused", "two_call", "heuristic")
+
+
+def plan_tick(store, now, solve_fn=None, deadline_s=0.0) -> dict:
+    """The planning chain of the tick through the port (the JAX
+    ``run_tick`` body without the cmp planner, the serial fallback, the
+    persister and intent creation): intent budget, capacity page,
+    snapshot, bounded solve, unpack, the alias and single-task rules,
+    the capacity plane. Returns its outputs, the moves of the counters
+    that show a fallback, and each step's wall time."""
+    from evergreen_tpu_torch.globals import ALIAS_SUFFIX, MAX_INTENT_HOSTS_IN_FLIGHT
+    from evergreen_tpu_torch.models import host as host_mod
+    from evergreen_tpu_torch.scheduler import capacity_plane as plane_mod
+    from evergreen_tpu_torch.scheduler import wrapper
+    from evergreen_tpu_torch.scheduler.snapshot import build_snapshot, pack_capacity_page
+    from evergreen_tpu_torch.utils.circuit import BREAKER_FAILURES
+
+    fused0 = {k: plane_mod.FUSED_SOLVES.value(mode=k) for k in RUNGS}
+    solves0 = plane_mod.CAPACITY_SOLVES.total()
+    fallbacks0 = plane_mod.CAPACITY_FALLBACKS.total()
+    failures0 = BREAKER_FAILURES.value(name="scheduler.solve")
+    ms = {}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        r = fn(*a, **kw)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    budget = max(0, MAX_INTENT_HOSTS_IN_FLIGHT - host_mod.count_intents_in_flight(store))
+    distros, tbd, hbd, est, deps_met = timed(
+        "gather_tick_inputs", wrapper.gather_tick_inputs, store, now)
+    distros = wrapper._apply_release_mode(store, distros)
+    plane = plane_mod.capacity_plane_for(store)
+    page = plane.build_capacity_page(quota_scale=1.0, intent_budget=budget)
+    snap = timed("build_snapshot", build_snapshot, distros, tbd, hbd, est, deps_met, now)
+    pack_capacity_page(snap.arrays, page)
+    breaker = wrapper.solve_breaker_for(store)
+    check(breaker.allow(now=now), "the solve breaker is open")
+    try:
+        out = timed("_solve_bounded", wrapper._solve_bounded, store, snap, deadline_s,
+                    solve_fn=solve_fn)
+    except Exception as exc:
+        breaker.record_failure(now=now, error=repr(exc))
+        raise
+    breaker.record_success(now=now)
+    plans, sort_values, infos, new_hosts, _, _, provenance = timed(
+        "_unpack_solve", wrapper._unpack_solve, snap, out)
+    d_pool, d_cap = snap.arrays["d_pool"], snap.arrays["d_cap_on"]
+    packed_cols = {did: (int(d_pool[i]), bool(d_cap[i]))
+                   for i, did in enumerate(snap.distro_ids)}
+    fused = plane_mod.extract_fused_view(snap, out) if page is not None else None
+    for k in [k for k in new_hosts if k.endswith(ALIAS_SUFFIX)]:
+        del new_hosts[k]
+    for d in distros:
+        if d.single_task_distro and d.id in new_hosts:
+            info = infos.get(d.id)
+            demand = info.length_with_dependencies_met if info else 0
+            existing = len(hbd.get(d.id, []))
+            cap = d.host_allocator_settings.maximum_hosts or demand
+            new_hosts[d.id] = max(0, min(demand, cap - existing))
+    before = dict(new_hosts)
+    after = timed("apply", plane.apply, distros, infos, new_hosts, hbd, now,
+                  degraded=False, quota_scale=1.0, intent_budget=budget,
+                  packed_cols=packed_cols, fused=fused)
+    return dict(
+        snap=snap, out=out, plans=plans, sort_values=sort_values, infos=infos,
+        before=before, after=after, provenance=provenance, fused=fused,
+        capacity=store._last_capacity, ms=ms,
+        rungs={k: plane_mod.FUSED_SOLVES.value(mode=k) - fused0[k] for k in RUNGS},
+        capacity_solves=plane_mod.CAPACITY_SOLVES.total() - solves0,
+        fallbacks=plane_mod.CAPACITY_FALLBACKS.total() - fallbacks0,
+        solve_failures=BREAKER_FAILURES.value(name="scheduler.solve") - failures0,
+        solve_breaker=breaker.state, fused_breaker=plane.fused_breaker.state,
+    )
+
+
+def close_docs(got, want, path=""):
+    """Whether two documents are equal: ints, strings and lists exactly,
+    floats within ``SUM_RTOL`` or the unit they are rounded to."""
+    if isinstance(want, dict):
+        check(set(got) == set(want), f"{path}: keys differ")
+        for k in want:
+            close_docs(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        check(len(got) == len(want), f"{path}: lengths differ")
+        for i, (g, w) in enumerate(zip(got, want)):
+            close_docs(g, w, f"{path}[{i}]")
+    elif isinstance(want, float):
+        unit = ROUNDED.get(path.rsplit(".", 1)[-1], 0.0)
+        # rounded values of f32 inputs within SUM_RTOL may differ by
+        # one unit, which is not exact in binary
+        check(abs(got - want) <= max(SUM_RTOL * abs(want), unit * (1 + 1e-6)),
+              f"{path}: {got} != {want}")
+    else:
+        check(type(got) is type(want) and got == want, f"{path}: {got!r} != {want!r}")
+
+
+def same_tick(card, cpu, label) -> None:
+    """The card's chain outputs against the CPU's: plans, sort values,
+    spawn counts, rung, capacity targets exactly; queue info and
+    provenance as ``close_docs``."""
+    check(list(card["plans"]) == list(cpu["plans"]), f"{label}: distros differ")
+    for did in cpu["plans"]:
+        check([t.id for t in card["plans"][did]] == [t.id for t in cpu["plans"][did]],
+              f"{label}: plan of {did} differs from the CPU's")
+        check(card["sort_values"][did].tobytes() == cpu["sort_values"][did].tobytes(),
+              f"{label}: sort values of {did} differ from the CPU's")
+        close_docs(card["infos"][did].doc(), cpu["infos"][did].doc(), f"{label}: info[{did}]")
+        close_docs(card["provenance"].to_doc(did, limit=10**9),
+                   cpu["provenance"].to_doc(did, limit=10**9), f"{label}: prov[{did}]")
+    for key in ("before", "after", "rungs", "capacity_solves", "fallbacks"):
+        check(card[key] == cpu[key], f"{label}: {key} differs from the CPU's")
+    check(card["capacity"].chosen == cpu["capacity"].chosen, f"{label}: chosen differs")
+    close_docs(card["capacity"].to_doc(limit=10**9), cpu["capacity"].to_doc(limit=10**9),
+               f"{label}: capacity")
+
+
+def planning_phase(torch, np) -> None:
+    """Phase 6."""
+    import functools
+    import threading
+
+    from evergreen_tpu_torch.models import distro as distro_mod
+    from evergreen_tpu_torch.models import host as host_mod
+    from evergreen_tpu_torch.models import task as task_mod
+    from evergreen_tpu_torch.ops import capacity as cap_ops
+    from evergreen_tpu_torch.ops.distro_stats import fused_distro_stats
+    from evergreen_tpu_torch.ops.segment import segment_sum
+    from evergreen_tpu_torch.ops.solve import OUTPUT_SPEC, capacity_iters, run_solve_packed
+    from evergreen_tpu_torch.scheduler.capacity_plane import build_fused_inputs
+    from evergreen_tpu_torch.settings import CapacityConfig
+    from evergreen_tpu_torch.storage.store import Store
+    from evergreen_tpu_torch.utils.benchgen import NOW, generate_problem
+
+    distros, tbd, hbd, _, _ = generate_problem(*CONFIG3, seed=SEED)
+    store = Store()
+    t0 = time.perf_counter()
+    for d in distros:
+        distro_mod.insert(store, d)
+    task_mod.insert_many(store, [t for ts in tbd.values() for t in ts])
+    for hs in hbd.values():
+        host_mod.insert_many(store, hs)
+    insert_ms = (time.perf_counter() - t0) * 1e3
+    coll = distro_mod.coll(store)
+    for doc in coll.find():
+        ps = dict(doc["planner_settings"])
+        ps["capacity"] = "tpu"
+        coll.update(doc["_id"], {"planner_settings": ps})
+    log(f"planning: config 3 (seed {SEED}) inserted into the port's Store: "
+        f"{len(distros)} distros, {task_mod.coll(store).count()} tasks, "
+        f"{host_mod.coll(store).count()} hosts in {insert_ms:.0f} ms (host); every "
+        f"distro opted into the capacity program, quota {PLAN_QUOTA}, fleet intent "
+        f"budget {PLAN_BUDGET}")
+
+    def configure(fused):
+        CapacityConfig(pool_quotas=PLAN_QUOTA, fleet_intent_budget=PLAN_BUDGET,
+                       fused=fused).set(store)
+
+    # the CPU reference runs: the solve and the two-call program on the CPU
+    original = cap_ops.run_capacity_solve
+    cpu = {}
+    try:
+        cap_ops.run_capacity_solve = functools.partial(original, device="cpu")
+        for fused in ("auto", "two_call"):
+            configure(fused)
+            cpu[fused] = plan_tick(store, NOW, solve_fn=functools.partial(
+                run_solve_packed, device="cpu"))
+    finally:
+        cap_ops.run_capacity_solve = original
+
+    iters = capacity_iters(cpu["auto"]["snap"])
+    check(iters == CapacityConfig().iterations, f"capacity page iterations {iters}")
+    # launches: the packed solve's, and the two-call program's pool sums —
+    # the minimum mass once and each projection (warm start and steps)
+    want_fused = expected_launches([iters])
+    want_two = dict(want_fused)
+    for k in ("segment_sum", "segment_sum[pool]"):
+        want_two[k] += 2 + iters
+    runs = {}
+    for label, fused, deadline in (("fused", "auto", 0.0),
+                                   ("two_call", "two_call", 0.0),
+                                   ("two_call+deadline", "two_call", PLAN_DEADLINE_S)):
+        configure(fused)
+        reset_launches(fused_distro_stats, segment_sum)
+        r = plan_tick(store, NOW, deadline_s=deadline)
+        r["launches"] = read_launches(fused_distro_stats, segment_sum)
+        runs[label] = r
+        rung = "fused" if fused == "auto" else "two_call"
+        check(r["solve_failures"] == 0 and r["solve_breaker"] == "closed",
+              f"{label}: the solve breaker saw a failure")
+        check(r["fallbacks"] == 0, f"{label}: scheduler_capacity_fallbacks_total moved")
+        check(r["fused_breaker"] == "closed", f"{label}: the fused breaker is open")
+        check(r["rungs"] == {k: int(k == rung) for k in RUNGS},
+              f"{label}: rungs {r['rungs']}, expected one {rung}")
+        check(r["capacity_solves"] == (0 if rung == "fused" else 1),
+              f"{label}: scheduler_capacity_solves_total moved {r['capacity_solves']}")
+        want = want_fused if rung == "fused" else want_two
+        check(r["launches"] == want, f"{label}: launches {r['launches']}, expected {want}")
+        same_tick(r, cpu[fused], label)
+        out = r["out"]
+        check(all(np.isfinite(out[n]).all() for n, k_, _ in OUTPUT_SPEC if k_ == "f32"),
+              f"{label}: outputs not finite")
+        check(sum(len(p) for p in r["plans"].values()) == r["snap"].n_tasks,
+              f"{label}: plans do not hold every task once")
+        check(min(r["after"].values()) >= 0, f"{label}: negative spawn count")
+    check(not any(t.name == "tick-solve" and t.is_alive() for t in threading.enumerate()),
+          "the deadline's solve thread outlived its solve")
+    f, c, c2 = runs["fused"], runs["two_call"], runs["two_call+deadline"]
+    check(f["after"] == c["after"] and f["before"] == c["before"],
+          "fused and two-call spawn counts differ")
+    check(f["capacity"].to_doc(limit=10**9)["distros"]
+          == c["capacity"].to_doc(limit=10**9)["distros"],
+          "fused and two-call targets differ")
+    check(digest(c["out"]) == digest(c2["out"]) and c["after"] == c2["after"]
+          and c["capacity"].to_doc(limit=10**9)["distros"]
+          == c2["capacity"].to_doc(limit=10**9)["distros"],
+          "the two two-call runs (no deadline, and a deadline) differ")
+    moved = sum(1 for d, n in f["after"].items() if n != f["before"][d])
+    log(f"planning: planner tpu on every run, no fallback counter moved, breakers "
+        f"closed; rungs fused / two_call / two_call as configured; card == CPU (plans, "
+        f"sort values, spawn counts, targets exact; f32 within rtol {SUM_RTOL}); "
+        f"fused == two-call targets and rounded allocations; the two two-call runs "
+        f"(deadline 0 and {PLAN_DEADLINE_S} s) byte-identical; capacity chose "
+        f"'{f['capacity'].chosen}', {sum(f['before'].values())} heuristic intents -> "
+        f"{sum(f['after'].values())} ({moved} distros moved)")
+    log("planning launches: " + json.dumps({k: r["launches"] for k, r in runs.items()}))
+
+    # the two-call program alone, at the fused program's padded D: x is
+    # the packed solve's cap_x bit for bit, and repeats byte for byte
+    inp = build_fused_inputs(f["fused"])
+    d_pad = f["fused"]["d_pad"]
+    xs, cap_ms = [], []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        xs.append(cap_ops.run_capacity_solve(inp, d_pad=d_pad))
+        cap_ms.append((time.perf_counter() - t0) * 1e3)
+    check(all(x.tobytes() == f["fused"]["cap_x"][: inp.n].tobytes() for x in xs),
+          "run_capacity_solve differs from the packed solve's cap_x")
+    ms = {k: [r["ms"][k] for r in runs.values()] for k in f["ms"]}
+    log("planning wall (ms; fused, two_call, two_call+deadline): inserts "
+        f"{insert_ms:.1f}; " + "; ".join(
+            f"{k} " + ", ".join(f"{v:.2f}" for v in vs) for k, vs in ms.items())
+        + f"; run_capacity_solve alone ({inp.n} rows at D {d_pad}, {iters} steps) "
+        f"median {statistics.median(cap_ms):.2f} ms, min {min(cap_ms):.2f} ms over 7, "
+        f"x == cap_x bit for bit")
+    log("planning: profile of one run_capacity_solve")
+    profile_solve(torch, lambda: cap_ops.run_capacity_solve(inp, d_pad=d_pad), None)
+
+
 def main() -> int:
     profile_dir = None
     sweep_mode = sys.argv[1:] == ["--sweep"]
@@ -1151,7 +1423,10 @@ def main() -> int:
     stacked_phase(torch, np, problems["seed0"], F32_TOL, profile_dir)
     mirror_phase(torch, np, problems["seed0"])
 
-    # ---- 6. result --------------------------------------------------------- #
+    # ---- 6. the tick's planning half --------------------------------------- #
+    planning_phase(torch, np)
+
+    # ---- 7. result --------------------------------------------------------- #
     for r in rows:
         r["launches"] = launches[r["name"]]
     # the byte and chain bounds behind bound_ms are in the log lines above

@@ -1,4 +1,5 @@
-"""Constants and enums the packed solve and its snapshot builder read.
+"""Constants and enums the packed solve, its snapshot builder and the
+store's models read.
 
 A copy of the part of ``evergreen_tpu/globals.py`` this package needs, so
 that it imports nothing of the JAX package. ``tests/test_torch_layout.py``
@@ -7,6 +8,54 @@ holds the copies equal to the originals.
 from __future__ import annotations
 
 import enum
+
+
+class TaskStatus(str, enum.Enum):
+    UNDISPATCHED = "undispatched"
+    DISPATCHED = "dispatched"
+    STARTED = "started"
+    SUCCEEDED = "success"
+    FAILED = "failed"
+    ABORTED = "aborted"
+    INACTIVE = "inactive"
+    SYSTEM_FAILED = "system-failed"
+    SETUP_FAILED = "setup-failed"
+    TIMED_OUT = "task-timed-out"
+    BLOCKED = "blocked"
+    WILL_RUN = "will-run"
+
+
+#: statuses in which a task has finished running
+TASK_COMPLETED_STATUSES = frozenset(
+    {TaskStatus.SUCCEEDED.value, TaskStatus.FAILED.value}
+)
+
+
+class HostStatus(str, enum.Enum):
+    UNINITIALIZED = "initializing"  # intent host, not yet materialized
+    BUILDING = "building"
+    BUILDING_FAILED = "building-failed"
+    STARTING = "starting"
+    PROVISIONING = "provisioning"
+    PROVISION_FAILED = "provision failed"
+    RUNNING = "running"
+    STOPPING = "stopping"
+    STOPPED = "stopped"
+    QUARANTINED = "quarantined"
+    DECOMMISSIONED = "decommissioned"
+    TERMINATED = "terminated"
+
+
+#: states the allocator counts as active capacity
+HOST_ACTIVE_STATUSES = frozenset(
+    {
+        HostStatus.UNINITIALIZED.value,
+        HostStatus.BUILDING.value,
+        HostStatus.STARTING.value,
+        HostStatus.PROVISIONING.value,
+        HostStatus.RUNNING.value,
+    }
+)
 
 
 class Requester(str, enum.Enum):
@@ -48,6 +97,29 @@ MAX_TASK_TIME_IN_QUEUE_S = 14 * 24 * 3600
 
 #: suffix of a distro id's secondary-queue alias row
 ALIAS_SUFFIX = "::alias"
+
+
+class PlannerVersion(str, enum.Enum):
+    TUNABLE = "tunable"
+    TPU = "tpu"
+    CMP_BASED = "cmpbased"
+
+
+class DispatcherVersion(str, enum.Enum):
+    REVISED_WITH_DEPENDENCIES = "revised-with-dependencies"
+
+
+class FinderVersion(str, enum.Enum):
+    LEGACY = "legacy"
+    PARALLEL = "parallel"
+    PIPELINE = "pipeline"
+    ALTERNATE = "alternate"
+
+
+class OverallocatedRule(str, enum.Enum):
+    DEFAULT = ""
+    TERMINATE = "terminate-hosts-when-overallocated"
+    IGNORE = "no-terminations-when-overallocated"
 
 
 class RoundingRule(str, enum.Enum):

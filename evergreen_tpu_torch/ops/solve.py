@@ -9,7 +9,8 @@ Counterpart of ``evergreen_tpu/ops/solve.py``:
                        reductions over distro × task-group segments; the
                        seven per-distro queue statistics come from
                        ``fused_distro_stats`` (a Hopper kernel on the card);
-  capacity_affinity  — the capacity program's damped-Newton relaxation and
+  capacity_affinity  — the capacity program's damped-Newton relaxation
+                       (``ops/capacity.py::relax``, the fused rung) and
                        the task-group → pool affinity anneal.
 
 Inputs are the named tensors ``ops/packing.py::unpack`` makes from the
@@ -40,7 +41,8 @@ from .capacity import (
     C_W_PRICE,
     P_BUCKET,
     _BIG,
-    _capacity_step_fns,
+    effective_caps,
+    relax,
 )
 from .distro_stats import fused_distro_stats
 from .packing import unpack
@@ -458,11 +460,6 @@ def capacity_affinity(
     def pool_sum(x):
         return segment_sum(x, plan)
 
-    # effective quota / budget (min hosts are hard and floor both)
-    lo_mass = pool_sum(torch.where(elig, lo, 0.0))
-    quota = torch.where(
-        a["p_quota"] > 0, torch.maximum(a["p_quota"], lo_mass), _BIG
-    )
     # reserved: non-eligible rows draw from the same intent budget first —
     # single-task rows want their 1:1 bypass count, the rest their
     # heuristic count
@@ -480,8 +477,10 @@ def capacity_affinity(
         torch.minimum(c[C_SPLIT_BUDGET], torch.clamp_min(base - reserved, 0.0)),
         c[C_SPLIT_BUDGET],
     )
-    lo_inc = torch.clamp_min(lo - existing, 0.0)
-    budget = torch.maximum(budget, torch.where(elig, lo_inc, 0.0).sum())
+    # effective quota / budget (min hosts are hard and floor both)
+    quota, budget = effective_caps(
+        lo, existing, elig, a["p_quota"], budget, pool_sum
+    )
 
     cap_a = {
         "demand_u": demand_u,
@@ -497,11 +496,7 @@ def capacity_affinity(
         "w_price": c[C_W_PRICE],
         "w_churn": c[C_W_CHURN],
     }
-    newton, project = _capacity_step_fns(pool_sum)
-    x = project(torch.clamp(anchor, lo, hi), cap_a)
-    for _ in range(cap_iters):
-        x = project(newton(x, cap_a), cap_a)
-    cap_x = torch.where(elig, x, anchor)
+    cap_x = relax(cap_a, pool_sum, cap_iters)
 
     # ---- task-group → pool affinity (anneal over the finished x) ---------- #
     ud = a["u_distro"].long()

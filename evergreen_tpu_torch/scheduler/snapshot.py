@@ -24,6 +24,7 @@ from ..globals import (
     ALIAS_SUFFIX,
     DEFAULT_TASK_DURATION_S,
     MAX_TASK_TIME_IN_QUEUE_S,
+    TASK_COMPLETED_STATUSES,
     FeedbackRule,
     Provider,
     RoundingRule,
@@ -179,6 +180,9 @@ class Snapshot:
     #: named views into the arenas (bool fields exposed as bool)
     arrays: Dict[str, np.ndarray]
     arena: Arena = None
+    #: the task objects in flat (task_ids) order, so unpacking a result
+    #: indexes tasks positionally
+    flat_tasks: List[Task] = None
 
     def shape_key(self) -> Tuple[int, ...]:
         """(N, M, U, G, H, D, P, C): the padded dims, which alone fix the
@@ -194,6 +198,18 @@ class Snapshot:
             len(a["p_price"]),
             len(a["c_cfg"]),
         )
+
+
+def deps_met_for(tasks, coll) -> Dict[str, bool]:
+    """Fetch the finished parents' statuses from the tasks collection
+    ``coll`` and compute the deps-met mask over ``tasks``."""
+    parent_ids = {d.task_id for t in tasks for d in t.depends_on}
+    finished = {
+        doc["_id"]: doc["status"]
+        for doc in coll.find_ids(list(parent_ids))
+        if doc["status"] in TASK_COMPLETED_STATUSES
+    }
+    return compute_deps_met(tasks, finished)
 
 
 def compute_deps_met(
@@ -664,4 +680,5 @@ def build_snapshot(
         n_distros=n_d,
         arrays=a,
         arena=arena,
+        flat_tasks=flat_tasks,
     )

@@ -1,0 +1,253 @@
+"""In-memory document store.
+
+A copy of the in-memory part of ``evergreen_tpu/storage/store.py``:
+``Collection`` and ``Store`` keep the same semantics, so a tick's gather
+reads the same documents in the same order from either package's store.
+``find`` returns the stored documents themselves, in insertion order,
+without copying them (``snapshot`` is the deep-copying read); an upsert
+of an existing id keeps its place. The durable store's hooks (the write
+journal, change listeners, the tick-scoped commit and fencing calls,
+``apply_wal_record``) and the delta persister's write shapes (``patch``,
+``patch_list``, ``splice_queue``, ``bulk_update``) come with the
+persister.
+
+Thread-safety: a single re-entrant lock guards each collection. The scheduler
+tick itself never blocks on this lock for long — the snapshot builder reads
+whole collections in one lock acquisition.
+"""
+from __future__ import annotations
+
+import copy
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
+
+from ..utils import lockcheck as _lockcheck
+
+
+class Collection:
+    """A named map of id -> document (a plain dict)."""
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self._docs: Dict[str, dict] = {}
+        self._lock = _lockcheck.make_rlock("store.collection")
+        #: memoized id → monotonic insertion rank, maintained incrementally:
+        #: consumers only SORT by it, so ranks need monotonicity, not
+        #: contiguity — inserts append the next counter value and removals
+        #: just drop the key (relative order of survivors is unchanged).
+        self._key_order_cache: Optional[Dict[str, int]] = None
+        self._order_rank = 0
+
+    # -- basic CRUD --------------------------------------------------------- #
+
+    def insert(self, doc: dict) -> None:
+        doc_id = doc["_id"]
+        with self._lock:
+            if doc_id in self._docs:
+                raise KeyError(f"duplicate _id {doc_id!r} in {self.name}")
+            self._docs[doc_id] = doc
+            if self._key_order_cache is not None:
+                self._key_order_cache[doc_id] = self._order_rank
+            self._order_rank += 1
+
+    def upsert(self, doc: dict) -> None:
+        with self._lock:
+            if doc["_id"] not in self._docs:
+                if self._key_order_cache is not None:
+                    self._key_order_cache[doc["_id"]] = self._order_rank
+                self._order_rank += 1
+            self._docs[doc["_id"]] = doc
+
+    def insert_many(self, docs: Iterable[dict]) -> None:
+        docs = list(docs)  # may be a generator; two passes below
+        with self._lock:
+            seen = set()
+            for doc in docs:
+                if doc["_id"] in self._docs or doc["_id"] in seen:
+                    raise KeyError(f"duplicate _id {doc['_id']!r} in {self.name}")
+                seen.add(doc["_id"])
+            for doc in docs:
+                self._docs[doc["_id"]] = doc
+                if self._key_order_cache is not None:
+                    self._key_order_cache[doc["_id"]] = self._order_rank
+                self._order_rank += 1
+
+    def get(self, doc_id: str) -> Optional[dict]:
+        with self._lock:
+            return self._docs.get(doc_id)
+
+    def find(self, pred: Optional[Callable[[dict], bool]] = None) -> List[dict]:
+        with self._lock:
+            if pred is None:
+                return list(self._docs.values())
+            return [d for d in self._docs.values() if pred(d)]
+
+    def find_ids(self, ids: Iterable[str]) -> List[dict]:
+        with self._lock:
+            return [self._docs[i] for i in ids if i in self._docs]
+
+    def key_order(self) -> Dict[str, int]:
+        """id → monotonic insertion rank (dicts preserve insertion order);
+        the deterministic ordering contract incremental caches must
+        reproduce. The returned mapping is a shared memo — treat it as
+        read-only."""
+        with self._lock:
+            if self._key_order_cache is None:
+                self._key_order_cache = {
+                    k: i for i, k in enumerate(self._docs)
+                }
+                self._order_rank = len(self._docs)
+            return self._key_order_cache
+
+    def remove(self, doc_id: str) -> bool:
+        with self._lock:
+            gone = self._docs.pop(doc_id, None) is not None
+            if gone and self._key_order_cache is not None:
+                self._key_order_cache.pop(doc_id, None)
+            return gone
+
+    def remove_where(self, pred: Callable[[dict], bool]) -> int:
+        with self._lock:
+            doomed = [i for i, d in self._docs.items() if pred(d)]
+            for i in doomed:
+                del self._docs[i]
+                if self._key_order_cache is not None:
+                    self._key_order_cache.pop(i, None)
+            return len(doomed)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._docs.clear()
+            self._key_order_cache = None
+            self._order_rank = 0
+
+    def count(self, pred: Optional[Callable[[dict], bool]] = None) -> int:
+        with self._lock:
+            if pred is None:
+                return len(self._docs)
+            return sum(1 for d in self._docs.values() if pred(d))
+
+    def __len__(self) -> int:
+        return len(self._docs)
+
+    def __iter__(self) -> Iterator[dict]:
+        return iter(self.find())
+
+    # -- atomic primitives --------------------------------------------------- #
+
+    def compare_and_set(
+        self,
+        doc_id: str,
+        expect: Dict[str, Any],
+        update: Dict[str, Any],
+    ) -> bool:
+        """Atomically apply ``update`` iff every field in ``expect`` matches.
+
+        This is the dispatch-correctness primitive: the reference's atomic
+        ``host.RunningTask`` assignment (rest/route/host_agent.go:311-420) and
+        task state transitions use Mongo conditional updates the same way.
+        """
+        with self._lock:
+            doc = self._docs.get(doc_id)
+            if doc is None:
+                return False
+            for key, val in expect.items():
+                if doc.get(key) != val:
+                    return False
+            doc.update(update)
+            return True
+
+    def update(self, doc_id: str, update: Dict[str, Any]) -> bool:
+        with self._lock:
+            doc = self._docs.get(doc_id)
+            if doc is None:
+                return False
+            doc.update(update)
+            return True
+
+    def update_where(
+        self, pred: Callable[[dict], bool], update: Dict[str, Any]
+    ) -> int:
+        with self._lock:
+            n = 0
+            for doc in self._docs.values():
+                if pred(doc):
+                    doc.update(update)
+                    n += 1
+            return n
+
+    def mutate(self, doc_id: str, fn: Callable[[dict], None]) -> bool:
+        """Run ``fn`` on the document under the collection lock."""
+        with self._lock:
+            doc = self._docs.get(doc_id)
+            if doc is None:
+                return False
+            fn(doc)
+            return True
+
+    def snapshot(self) -> List[dict]:
+        """Deep-copied point-in-time view (for the snapshot builder)."""
+        with self._lock:
+            return copy.deepcopy(list(self._docs.values()))
+
+
+class Store:
+    """A namespace of collections, analogous to one Mongo database."""
+
+    def __init__(self) -> None:
+        self._collections: Dict[str, Collection] = {}
+        self._lock = _lockcheck.make_lock("store.db")
+
+    def collection(self, name: str) -> Collection:
+        with self._lock:
+            coll = self._collections.get(name)
+            if coll is None:
+                coll = Collection(name)
+                self._collections[name] = coll
+            return coll
+
+    def clear_collections(self, *names: str) -> None:
+        """Test seam, mirroring the reference's db.ClearCollections pattern
+        (reference testutil usage throughout *_test.go). Collections are
+        cleared outside the store lock, as in the JAX store."""
+        with self._lock:
+            if not names:
+                targets = list(self._collections.values())
+            else:
+                targets = [
+                    self._collections[n] for n in names
+                    if n in self._collections
+                ]
+        for coll in targets:
+            coll.clear()
+
+    def __getitem__(self, name: str) -> Collection:
+        return self.collection(name)
+
+
+_GLOBAL_STORE: Optional[Store] = None
+_GLOBAL_LOCK = _lockcheck.make_lock("store.global")
+
+
+def global_store() -> Store:
+    """Process-wide default store (the reference's evergreen.GetEnvironment().DB()
+    analog, reference environment.go:93)."""
+    global _GLOBAL_STORE
+    with _GLOBAL_LOCK:
+        if _GLOBAL_STORE is None:
+            _GLOBAL_STORE = Store()
+        return _GLOBAL_STORE
+
+
+def reset_global_store() -> Store:
+    global _GLOBAL_STORE
+    with _GLOBAL_LOCK:
+        _GLOBAL_STORE = Store()
+        return _GLOBAL_STORE
+
+
+def set_global_store(store: Store) -> Store:
+    """Install a specific store as the process-wide default."""
+    global _GLOBAL_STORE
+    with _GLOBAL_LOCK:
+        _GLOBAL_STORE = store
+        return store

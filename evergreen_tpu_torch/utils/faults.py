@@ -1,9 +1,16 @@
 """Seam-based deterministic fault injection (tests only).
 
-The part of ``evergreen_tpu/utils/faults.py`` that the solver-leader
-plane and its lease need. Each instrumented seam calls ``fire("<seam>")``;
-with no plan installed that is one global read and a return. Seams:
+The part of ``evergreen_tpu/utils/faults.py`` that the port's seams
+need. Each instrumented seam calls ``fire("<seam>")``; with no plan
+installed that is one global read and a return. A fault fires on one
+call index of its seam (``at``) or on every call (``always``); each
+firing is counted in ``faults_fired_total{seam}`` and logged. Seams:
 
+  ``scheduler.solve`` the tick's packed solve, inside its deadline
+                      (scheduler/wrapper.py ``_solve_bounded``)
+  ``capacity.solve``  the capacity plane's whole solve step, whichever
+                      rung serves it (scheduler/capacity_plane.py)
+  ``capacity.fused``  the capacity plane's fused rung only
   ``solver.round``    the leader's serve_round entry (runtime/solver.py)
   ``solver.publish``  after the leader has collected the publications
   ``solver.solve``    after the stacked solve, before any result write
@@ -23,9 +30,19 @@ from __future__ import annotations
 
 import errno
 import os
-import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
+
+from . import lockcheck as _lockcheck
+from . import metrics as _metrics
+from .log import get_logger
+
+FAULTS_FIRED = _metrics.counter(
+    "faults_fired_total",
+    "Injected faults fired by the active fault plan, labeled by seam.",
+    labels=("seam",),
+    legacy="faults.fired",
+)
 
 
 class FaultError(RuntimeError):
@@ -55,8 +72,9 @@ class FaultPlan:
     """Deterministic schedule of faults keyed by (seam, call index)."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = _lockcheck.make_lock("faults.plan")
         self._at: Dict[str, Dict[int, Fault]] = {}
+        self._always: Dict[str, Fault] = {}
         self._calls: Dict[str, int] = {}
         #: audit trail: (seam, call index, kind) per fired fault
         self.fired: List[Tuple[str, int, str]] = []
@@ -66,14 +84,23 @@ class FaultPlan:
         self._at.setdefault(seam, {})[call_index] = fault
         return self
 
+    def always(self, seam: str, fault: Fault) -> "FaultPlan":
+        """Fire ``fault`` on every call of the seam."""
+        self._always[seam] = fault
+        return self
+
     def fire(self, seam: str) -> Optional[str]:
         with self._lock:
             idx = self._calls.get(seam, 0)
             self._calls[seam] = idx + 1
-            fault = self._at.get(seam, {}).get(idx)
+            fault = self._at.get(seam, {}).get(idx) or self._always.get(seam)
             if fault is None:
                 return None
             self.fired.append((seam, idx, fault.kind))
+        FAULTS_FIRED.inc(seam=seam)
+        get_logger("faults").warning(
+            "fault-injected", seam=seam, call_index=idx, kind=fault.kind
+        )
         if fault.kind == "raise":
             raise fault.exc if fault.exc is not None else FaultError(
                 f"injected fault at {seam}"

@@ -21,6 +21,10 @@ from evergreen_tpu_torch.ops.distro_stats import (  # noqa: E402
     fused_distro_stats,
     fused_distro_stats_plain,
 )
+from evergreen_tpu_torch.ops.capacity import (  # noqa: E402
+    run_capacity_solve,
+    solve_capacity_from_x,
+)
 from evergreen_tpu_torch.ops.segment import segment_plan, segment_sum  # noqa: E402
 from evergreen_tpu_torch.ops.resident_ops import DeviceMirror  # noqa: E402
 from evergreen_tpu_torch.ops.solve import (  # noqa: E402
@@ -35,6 +39,10 @@ from evergreen_tpu_torch.parallel.sharded import (  # noqa: E402
 from evergreen_tpu_torch.runtime.solver import (  # noqa: E402
     SolverClient,
     SolverService,
+)
+from evergreen_tpu_torch.scheduler.capacity_plane import (  # noqa: E402
+    build_fused_inputs,
+    extract_fused_view,
 )
 from evergreen_tpu_torch.scheduler.snapshot import build_snapshot  # noqa: E402
 from evergreen_tpu_torch.utils.benchgen import (  # noqa: E402
@@ -279,6 +287,29 @@ def test_card_stacked_solve_equals_per_shard_solves(cuda_device):
             else:
                 np.testing.assert_allclose(got[k][name], cpu[k][name],
                                            rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_card_two_call_program_is_the_fused_rung(cuda_device):
+    """At config 3's padded D, ``run_capacity_solve`` on the card gives
+    the packed solve's ``cap_x`` bit for bit (fused ≡ two-call), repeats
+    byte for byte, launches ``segment_sum`` 2 + iterations times, and
+    equals its CPU run (rtol 1e-5, atol 1e-6; targets exactly)."""
+    snap = add_capacity_page(build_snapshot(*generate_problem(200, 50_000, seed=0), NOW))
+    fused = extract_fused_view(snap, run_solve_packed(snap))
+    inp = build_fused_inputs(fused)
+    d_pad = fused["d_pad"]
+    before = segment_sum.launches
+    x = run_capacity_solve(inp, d_pad=d_pad)
+    assert segment_sum.launches == before + 2 + inp.iterations
+    assert x.tobytes() == fused["cap_x"][: inp.n].tobytes()
+    assert x.tobytes() == run_capacity_solve(inp, d_pad=d_pad).tobytes()
+    cpu = run_capacity_solve(inp, d_pad=d_pad, device="cpu")
+    np.testing.assert_allclose(x, cpu, rtol=1e-5, atol=1e-6)
+    card_t, _, card_chosen = solve_capacity_from_x(inp, x)
+    cpu_t, _, cpu_chosen = solve_capacity_from_x(inp, cpu)
+    np.testing.assert_array_equal(card_t, cpu_t)
+    assert card_chosen == cpu_chosen
 
 
 def test_entry_points_need_a_card_unless_cpu(tmp_path):

@@ -164,15 +164,23 @@ def test_generated_snapshot_is_byte_identical(n_distros, n_tasks, seed, kw):
     _assert_same_arena(js, ts)
 
 
+#: the port's class of each nested JAX-package dataclass, by name
+_NESTED = {c.__name__: c for c in (
+    t_distro.PlannerSettings, t_distro.HostAllocatorSettings,
+    t_distro.BootstrapSettings, t_distro.DispatcherSettings,
+    t_distro.FinderSettings,
+)}
+
+
 def _port_copy(obj, cls):
     """The port's model object with the same values as a JAX-package one."""
     kw = {}
     for f in dataclasses.fields(cls):
+        if not f.init:
+            continue
         v = getattr(obj, f.name)
-        if f.name == "planner_settings":
-            v = _port_copy(v, t_distro.PlannerSettings)
-        elif f.name == "host_allocator_settings":
-            v = _port_copy(v, t_distro.HostAllocatorSettings)
+        if dataclasses.is_dataclass(v):
+            v = _port_copy(v, _NESTED[type(v).__name__])
         elif f.name == "depends_on":
             v = [_port_copy(d, t_task.Dependency) for d in v]
         kw[f.name] = v
@@ -191,6 +199,123 @@ def test_random_problem_snapshot_is_byte_identical(seed):
         dm, PARITY_NOW,
     )
     _assert_same_arena(js, ts)
+
+
+def test_tick_plan_constants_match_the_jax_package():
+    """The breaker knobs, the alias suffix, the metric instruments, the
+    config sections' ids and defaults and the default pool prices of the
+    tick's planning half are the JAX package's."""
+    from evergreen_tpu import settings as j_settings
+    from evergreen_tpu.cloud import manager as j_manager
+    from evergreen_tpu.models import distro as j_distro
+    from evergreen_tpu.models import host as j_host
+    from evergreen_tpu.models import task as j_task
+    from evergreen_tpu.scheduler import capacity_plane as j_plane
+    from evergreen_tpu.scheduler import wrapper as j_wrapper
+    from evergreen_tpu.utils import circuit as j_circuit
+    from evergreen_tpu.utils import faults as j_faults
+    from evergreen_tpu.utils import log as j_log
+    from evergreen_tpu.utils import metrics as j_metrics
+
+    from evergreen_tpu_torch import settings as t_settings
+    from evergreen_tpu_torch.cloud import manager as t_manager
+    from evergreen_tpu_torch.scheduler import capacity_plane as t_plane
+    from evergreen_tpu_torch.scheduler import wrapper as t_wrapper
+    from evergreen_tpu_torch.utils import circuit as t_circuit
+    from evergreen_tpu_torch.utils import faults as t_faults
+    from evergreen_tpu_torch.utils import log as t_log
+    from evergreen_tpu_torch.utils import metrics as t_metrics
+
+    for name in ("ALIAS_SUFFIX", "SOLVE_BREAKER_THRESHOLD",
+                 "SOLVE_BREAKER_COOLDOWN_S"):
+        assert getattr(t_wrapper, name) == getattr(j_wrapper, name), name
+    for name in ("CAPACITY_BREAKER_THRESHOLD", "CAPACITY_BREAKER_COOLDOWN_S"):
+        assert getattr(t_plane, name) == getattr(j_plane, name), name
+    for t_mod, j_mod, names in (
+        (t_plane, j_plane, ("CAPACITY_SOLVES", "CAPACITY_FALLBACKS",
+                            "CAPACITY_SOLVE_MS", "CAPACITY_INTENTS",
+                            "FUSED_SOLVES")),
+        (t_circuit, j_circuit, ("BREAKER_TRANSITIONS", "BREAKER_FAILURES")),
+        (t_faults, j_faults, ("FAULTS_FIRED",)),
+    ):
+        for name in names:
+            t_i, j_i = getattr(t_mod, name), getattr(j_mod, name)
+            assert (t_i.kind, t_i.name, t_i.help, t_i.labelnames) == (
+                j_i.kind, j_i.name, j_i.help, j_i.labelnames), name
+            if t_i.kind == "histogram":
+                assert t_i.buckets == j_i.buckets, name
+    for name in ("ALLOWED_LABELS", "DEFAULT_MAX_SERIES", "DEFAULT_BUCKETS_MS"):
+        assert getattr(t_metrics, name) == getattr(j_metrics, name), name
+    assert t_log.LEVELS == j_log.LEVELS
+    assert t_settings.CONFIG_COLLECTION == j_settings.CONFIG_COLLECTION
+    for name in ("ServiceFlags", "CapacityConfig", "OverridesConfig",
+                 "ReleaseModeConfig"):
+        t_cls, j_cls = getattr(t_settings, name), getattr(j_settings, name)
+        assert t_cls.section_id == j_cls.section_id, name
+        assert dataclasses.asdict(t_cls()) == dataclasses.asdict(j_cls()), name
+    assert t_manager.default_pool_prices() == j_manager.default_pool_prices()
+    assert t_distro.COLLECTION == j_distro.COLLECTION
+    assert t_host.COLLECTION == j_host.COLLECTION
+    assert t_task.COLLECTION == j_task.COLLECTION
+    assert t_task.DEP_STATUS_ANY == j_task.DEP_STATUS_ANY
+    for name in ("TASK_COMPLETED_STATUSES", "HOST_ACTIVE_STATUSES"):
+        assert getattr(t_globals, name) == getattr(j_globals, name), name
+    for enum_name in ("TaskStatus", "HostStatus", "PlannerVersion",
+                      "DispatcherVersion", "FinderVersion",
+                      "OverallocatedRule"):
+        assert [(e.name, e.value) for e in getattr(t_globals, enum_name)] == [
+            (e.name, e.value) for e in getattr(j_globals, enum_name)], enum_name
+
+
+def _copied_dataclasses():
+    """(port class, JAX class) for every dataclass the port copies."""
+    from evergreen_tpu import settings as j_settings
+    from evergreen_tpu.models import distro as j_distro
+    from evergreen_tpu.models import host as j_host
+    from evergreen_tpu.models import task as j_task
+    from evergreen_tpu.models import task_queue as j_queue
+    from evergreen_tpu.scheduler import serial as j_serial
+
+    from evergreen_tpu_torch import settings as t_settings
+    from evergreen_tpu_torch.models import task_queue as t_queue
+
+    pairs = [
+        (t_distro, j_distro, ("PlannerSettings", "HostAllocatorSettings",
+                              "BootstrapSettings", "DispatcherSettings",
+                              "FinderSettings", "Distro")),
+        (t_host, j_host, ("Host",)),
+        (t_task, j_task, ("Dependency", "DurationStats", "Task")),
+        (t_queue, j_queue, ("TaskGroupInfo", "DistroQueueInfo")),
+        (t_capacity, j_capacity, ("CapacityInputs",)),
+        (t_settings, j_settings, ("ServiceFlags", "CapacityConfig",
+                                  "OverridesConfig", "ReleaseModeConfig")),
+        (t_serial, j_serial, ("RunningTaskEstimate",)),
+    ]
+    return [(getattr(t, n), getattr(j, n)) for t, j, names in pairs
+            for n in names]
+
+
+def _field_spec(cls):
+    def default(f):
+        if f.default is not dataclasses.MISSING:
+            return ("value", f.default)
+        if f.default_factory is not dataclasses.MISSING:
+            v = f.default_factory()
+            if dataclasses.is_dataclass(v):  # the package's own class
+                return ("factory", type(v).__name__, dataclasses.asdict(v))
+            return ("factory", v)
+        return ("required",)
+
+    return [(f.name, str(f.type), default(f), f.init, f.compare)
+            for f in dataclasses.fields(cls)]
+
+
+@pytest.mark.parametrize("pair", _copied_dataclasses(),
+                         ids=lambda p: p[0].__name__)
+def test_copied_dataclass_has_the_jax_fields(pair):
+    t_cls, j_cls = pair
+    assert _field_spec(t_cls) == _field_spec(j_cls)
+    assert ("__slots__" in vars(t_cls)) == ("__slots__" in vars(j_cls))
 
 
 _IMPORT_CHECK = """
@@ -216,7 +341,7 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules if banned(m))
 assert not bad, bad
-assert len(names) >= 32, names
+assert len(names) >= 44, names
 print("ok", len(names))
 """
 
