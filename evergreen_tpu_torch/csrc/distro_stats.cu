@@ -17,7 +17,8 @@
 // their packed dtype, two f32 columns) once and does a few compares and
 // adds per byte: at the 200-distro x 50k-task configuration about 0.56 MB,
 // 0.17 us of HBM time at 3.35 TB/s, well under the launch itself (a
-// one-element add_ takes about 1.15 us). The first design gave each
+// one-element add_ takes about 1.15 us) and under the ordered fold of the
+// longest distro's durations (below). The first design gave each
 // distro a block of 256 threads, so with 250 tasks a distro each thread
 // loaded at most one task, and the block's time was fixed latency in
 // series: the offsets, one round of loads, a 5-level shuffle tree over 7
@@ -28,16 +29,27 @@
 // Design. One warp owns one distro, 2 distros to a 64-thread block: 112
 // blocks at that configuration, one to an SM (8 distros to a 256-thread
 // block measured slower: 28 SMs then carried every warp's loads and
-// compares). Lane l takes tasks start + l + 32 j for j < kUnroll
-// (coalesced across the warp) and issues all of their loads before any
-// compare; a distro larger than 32 x kUnroll tasks is walked in strides
-// of that. Counts are kept as integers (exact) and reduced with one
-// warp-wide integer add each; the two duration sums are kept in f32 and
-// reduced by shuffles in a fixed order. Lanes 0-6 store the seven results
-// at once. No shared memory, no __syncthreads, no atomics, so a run
-// repeats bit for bit; an empty distro costs one warp. The kernel
-// allocates and synchronises nothing; the wrapper (ops/distro_stats.py)
-// allocates the [D, 7] f32 output and checks the inputs.
+// compares). The warp walks its range in chunks of 32 x kUnroll tasks:
+// lane l loads tasks base + l + 32 j for j < kUnroll (coalesced across
+// the warp) and issues all of their loads before any compare. Counts are
+// kept as integers (exact in any order) and reduced with one warp-wide
+// integer add each. The two duration sums are the capacity demand, which
+// is floored and rounded into host targets, so they must be the CPU's
+// bit for bit: each is one left fold in element order over the distro's
+// range, the order in which index_add_ adds on the CPU. Each lane writes
+// its chunk's two masked durations (0 where the mask is off) to shared
+// memory, and after a __syncwarp lane 0 folds the deps-met column and
+// lane 1 the over-threshold column, in order, four floats to a
+// shared-memory load; a masked or past-the-end task adds +0, which never
+// changes a sum that started at +0. The fold is one dependent chain of
+// f32 adds, so the longest distro bounds the kernel: its length x the
+// FADD latency over the SM clock. (The design before this one reduced
+// lane-strided partial sums with an xor butterfly: faster, and one
+// rounding unit away from the CPU.) Lanes 0-6 store the seven results at once. No atomics
+// and no __syncthreads, so a run repeats bit for bit; an empty distro
+// costs one warp. The kernel allocates and synchronises nothing; the
+// wrapper (ops/distro_stats.py) allocates the [D, 7] f32 output and
+// checks the inputs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,7 +68,26 @@ namespace {
 constexpr int kThreads = DISTRO_STATS_THREADS;
 constexpr int kWarps = kThreads / 32;  // distros per block
 constexpr int kUnroll = DISTRO_STATS_UNROLL;  // tasks a lane loads at once
+constexpr int kChunk = 32 * kUnroll;  // tasks a warp stages at once
+// a staged column's row; the 4 floats past the chunk put lane 1's float4
+// reads 4 banks away from lane 0's
+constexpr int kRow = kChunk + 4;
 constexpr int kStats = 7;
+
+// acc += col[0], col[1], ..., col[len - 1] one add at a time, reading
+// four floats to a load; col holds zeros up to the next multiple of 4
+__device__ __forceinline__ void fold(const float* col, int len, float& acc) {
+  const float4* q = reinterpret_cast<const float4*>(col);
+  const int n4 = (len + 3) >> 2;
+#pragma unroll 4
+  for (int k = 0; k < n4; ++k) {
+    const float4 v = q[k];
+    acc += v.x;
+    acc += v.y;
+    acc += v.z;
+    acc += v.w;
+  }
+}
 
 __global__ void __launch_bounds__(kThreads) fused_distro_stats_kernel(
     const uint8_t* __restrict__ valid, const uint8_t* __restrict__ deps,
@@ -64,7 +95,10 @@ __global__ void __launch_bounds__(kThreads) fused_distro_stats_kernel(
     const uint8_t* __restrict__ merge, const int32_t* __restrict__ offs,
     const float* __restrict__ thresh, int n, int n_distros,
     float* __restrict__ out) {
-  const int d = blockIdx.x * kWarps + threadIdx.x / 32;
+  // each warp's chunk of the two masked duration columns
+  __shared__ __align__(16) float stage[kWarps][2][kRow];
+  const int w = threadIdx.x / 32;
+  const int d = blockIdx.x * kWarps + w;
   const int lane = threadIdx.x % 32;
   if (d >= n_distros) return;  // d is uniform across the warp
   const int start = max(offs[d], 0);
@@ -72,13 +106,14 @@ __global__ void __launch_bounds__(kThreads) fused_distro_stats_kernel(
   const float th = thresh[d];
 
   unsigned cnt[5] = {0, 0, 0, 0, 0};  // valid, deps, over, wait, merge
-  float sum[2] = {0.f, 0.f};          // dur, over dur
-  for (int base = start + lane; base < end; base += 32 * kUnroll) {
+  // lane 0: the deps-met duration, lane 1: the over-threshold duration
+  float acc = 0.f;
+  for (int base = start; base < end; base += kChunk) {
     uint8_t v[kUnroll], dp[kUnroll], mg[kUnroll];
     float du[kUnroll], wt[kUnroll];
 #pragma unroll
     for (int j = 0; j < kUnroll; ++j) {
-      const int i = base + 32 * j;
+      const int i = base + lane + 32 * j;
       const bool in = i < end;
       v[j] = in ? valid[i] : 0;
       dp[j] = in ? deps[i] : 0;
@@ -86,6 +121,7 @@ __global__ void __launch_bounds__(kThreads) fused_distro_stats_kernel(
       du[j] = in ? dur[i] : 0.f;
       wt[j] = in ? wait[i] : 0.f;
     }
+    float m0[kUnroll], m1[kUnroll];
 #pragma unroll
     for (int j = 0; j < kUnroll; ++j) {
       const bool dm = v[j] != 0 && dp[j] != 0;
@@ -95,25 +131,27 @@ __global__ void __launch_bounds__(kThreads) fused_distro_stats_kernel(
       cnt[2] += over;
       cnt[3] += dm && wt[j] > th;
       cnt[4] += dm && mg[j] != 0;
-      sum[0] += dm ? du[j] : 0.f;
-      sum[1] += over ? du[j] : 0.f;
+      m0[j] = dm ? du[j] : 0.f;
+      m1[j] = over ? du[j] : 0.f;
     }
+    __syncwarp();  // lanes 0 and 1 are done with the previous chunk
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      stage[w][0][lane + 32 * j] = m0[j];
+      stage[w][1][lane + 32 * j] = m1[j];
+    }
+    __syncwarp();
+    if (lane < 2) fold(stage[w][lane], min(kChunk, end - base), acc);
   }
 
-  // counts: one integer reduction each; sums: an xor butterfly, whose
-  // adds are the same in every lane up to operand order (commutative), so
-  // every lane holds the same bits
 #pragma unroll
   for (int k = 0; k < 5; ++k) cnt[k] = __reduce_add_sync(0xffffffffu, cnt[k]);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int k = 0; k < 2; ++k) sum[k] += __shfl_xor_sync(0xffffffffu, sum[k], off);
-  }
+  const float sum0 = __shfl_sync(0xffffffffu, acc, 0);
+  const float sum1 = __shfl_sync(0xffffffffu, acc, 1);
   if (lane < kStats) {  // lane k stores stat k: one 28-byte store
     const float r[kStats] = {
-        static_cast<float>(cnt[0]), static_cast<float>(cnt[1]), sum[0],
-        static_cast<float>(cnt[2]), sum[1], static_cast<float>(cnt[3]),
+        static_cast<float>(cnt[0]), static_cast<float>(cnt[1]), sum0,
+        static_cast<float>(cnt[2]), sum1, static_cast<float>(cnt[3]),
         static_cast<float>(cnt[4])};
     float v = r[0];
 #pragma unroll
@@ -123,7 +161,6 @@ __global__ void __launch_bounds__(kThreads) fused_distro_stats_kernel(
 }
 
 }  // namespace
-
 extern "C" int fused_distro_stats_launch(
     const void* valid, const void* deps, const void* dur, const void* wait,
     const void* merge, const void* offs, const void* thresh, int n,

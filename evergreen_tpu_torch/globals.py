@@ -81,6 +81,21 @@ def is_github_merge_queue_requester(requester: str) -> bool:
     return requester == GITHUB_MERGE_REQUESTER
 
 
+def is_mainline_requester(requester: str) -> bool:
+    return requester in (Requester.REPOTRACKER.value, Requester.AD_HOC.value,
+                         Requester.TRIGGER.value)
+
+
+#: tasks above this priority lead the cmp-based planner's queue
+MAX_TASK_PRIORITY = 100
+
+#: sort-value boost of a unit holding a merge-queue task
+COMMIT_QUEUE_PRIORITY_BOOST = 200
+
+#: an undispatched task activated longer ago than this is unscheduled
+UNDERWATER_UNSCHEDULE_THRESHOLD_S = 7 * 24 * 3600
+
+
 STEPBACK_TASK_ACTIVATOR = "stepback-activator"
 
 #: target queue turnaround per host, seconds

@@ -1,15 +1,16 @@
 """Task document.
 
 A copy of ``evergreen_tpu/models/task.py``'s ``Dependency``,
-``DurationStats`` and ``Task`` (field for field) and the store reads the
-tick's gather calls; ``mark_scheduled`` and the other writes of a whole
-tick are not ported. Times are epoch seconds, durations seconds.
+``DurationStats`` and ``Task`` (field for field), the store reads the
+tick's gather calls and the two writes of a tick: ``mark_scheduled`` and
+``unschedule_stale_underwater``. Times are epoch seconds, durations
+seconds.
 """
 from __future__ import annotations
 
 import dataclasses
 import time as _time
-from typing import Dict, List, Optional
+from typing import Dict, Iterable, List, Optional
 
 from ..globals import (
     DEFAULT_TASK_DURATION_S,
@@ -212,6 +213,15 @@ class Task:
             return min(max(0.0, now - self.ingest_time), MAX_TASK_TIME_IN_QUEUE_S)
         return 0.0
 
+    def wait_since_dependencies_met(self, now: Optional[float] = None) -> float:
+        """Overdue-wait signal for the allocator feedback rule (reference
+        scheduler/scheduler.go:121-133)."""
+        now = _time.time() if now is None else now
+        start = max(self.scheduled_time, self.dependencies_met_time)
+        if start <= 0.0:
+            return 0.0
+        return max(0.0, now - start)
+
     # -- serialization ------------------------------------------------------- #
 
     def to_doc(self) -> dict:
@@ -289,3 +299,63 @@ def find_host_runnable(store: Store, distro_id: str = "") -> List[Task]:
     # Drop blocked tasks (unattainable dependencies): the reference's
     # $graphLookup pipeline filters these out of the runnable set.
     return [t for t in tasks if not t.blocked()]
+
+
+def mark_scheduled(
+    store: Store, task_ids: List[str], when: float, deps_met_ids: Iterable[str] = ()
+) -> int:
+    """Stamp scheduled_time for newly planned tasks and
+    dependencies_met_time the first time a task is seen with its
+    dependencies satisfied (reference SetTasksScheduledAndDepsMetTime via
+    scheduler/task_queue_persister.go:17-62 + model/task/task.go:1161-1175;
+    the latter keeps the allocator's waits-over-threshold feedback from
+    counting pre-dependency wait)."""
+    c = coll(store)
+    deps_met_set = set(deps_met_ids)
+    # check-before-mutate (a steady-state tick must not dirty unchanged
+    # tasks), then ONE batched update per stamp kind; the only_if
+    # predicate re-checks under the lock so a concurrent stamp can't be
+    # double-applied
+    docs = c.find_ids(task_ids)
+    sched_ids = [
+        d["_id"] for d in docs if d.get("scheduled_time", 0.0) <= 0.0
+    ]
+    dmt_ids = [
+        d["_id"]
+        for d in docs
+        if d["_id"] in deps_met_set
+        and d.get("dependencies_met_time", 0.0) <= 0.0
+    ]
+    n = c.bulk_update(
+        sched_ids,
+        {"scheduled_time": when},
+        only_if=lambda d: d.get("scheduled_time", 0.0) <= 0.0,
+    )
+    c.bulk_update(
+        dmt_ids,
+        {"dependencies_met_time": when},
+        only_if=lambda d: d.get("dependencies_met_time", 0.0) <= 0.0,
+    )
+    return n
+
+
+def unschedule_stale_underwater(
+    store: Store, distro_id: str, now: float, threshold_s: float
+) -> List[str]:
+    """Deactivate tasks stale in the queue beyond the underwater threshold
+    and zero their priority (reference task.UnscheduleStaleUnderwaterHostTasks
+    via scheduler/scheduler.go:223)."""
+
+    def stale(doc: dict) -> bool:
+        if doc["status"] != TaskStatus.UNDISPATCHED.value or not doc["activated"]:
+            return False
+        if distro_id and doc["distro_id"] != distro_id:
+            return False
+        activated = doc.get("activated_time", 0.0) or doc.get("ingest_time", 0.0)
+        return activated > 0.0 and (now - activated) > threshold_s
+
+    c = coll(store)
+    doomed = [d["_id"] for d in c.find(stale)]
+    for tid in doomed:
+        c.update(tid, {"activated": False, "priority": 0})
+    return doomed

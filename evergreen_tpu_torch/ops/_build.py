@@ -32,6 +32,12 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel of the package failed to build, load or launch. Callers
+    that degrade on other failures re-raise it: a card that cannot run
+    its kernels is a fault to fix, not work to move to the host."""
+
+
 def source_path(name: str) -> str:
     return os.path.join(CSRC_DIR, f"{name}.cu")
 
@@ -54,7 +60,7 @@ def _nvcc() -> str:
     cand = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
     nvcc = cand if cand and os.path.exists(cand) else shutil.which("nvcc")
     if nvcc is None:
-        raise RuntimeError(
+        raise KernelError(
             "nvcc not found: set CUDA_HOME to the CUDA toolkit to build "
             "the package's kernels"
         )
@@ -113,7 +119,7 @@ def _compile(jobs: Sequence[Tuple[str, Mapping[str, int]]]) -> List[float]:
         for (name, defines), log_path in failed:
             with open(log_path) as f:
                 msgs.append(f"{name} {' '.join(_flags(defines))}:\n{f.read()[-4000:]}")
-        raise RuntimeError("nvcc failed for " + "\n".join(msgs))
+        raise KernelError("nvcc failed for " + "\n".join(msgs))
     return seconds
 
 
@@ -127,11 +133,15 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build([name])
-            lib = _libs[name] = ctypes.CDLL(_lib_path(name, {}))
+            try:
+                lib = ctypes.CDLL(_lib_path(name, {}))
+            except OSError as exc:
+                raise KernelError(f"cannot load the {name} kernel: {exc}") from exc
+            _libs[name] = lib
         return lib
 
 
 def check_launch(rc: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a launch function."""
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {rc}")
+        raise KernelError(f"{what}: CUDA launch failed with cudaError_t {rc}")

@@ -482,7 +482,7 @@ def solve_capacity_from_x(
 
 
 def solve_capacity(
-    inp: CapacityInputs, d_pad: Optional[int] = None
+    inp: CapacityInputs, d_pad: Optional[int] = None, device=None
 ) -> Tuple[np.ndarray, np.ndarray, str]:
     """The full two-call pipeline: device relaxation → deterministic
     rounding → matches-or-beats guard. Returns (targets, fractional x,
@@ -492,8 +492,9 @@ def solve_capacity(
     allocation is adopted only when it is feasible AND its total drain
     does not regress the heuristic's (or the heuristic itself violates
     a pool/fleet constraint — the coupled caps the per-distro loop is
-    blind to — in which case the solver's feasible answer wins)."""
-    x = run_capacity_solve(inp, d_pad=d_pad)
+    blind to — in which case the solver's feasible answer wins).
+    ``device`` is ``run_capacity_solve``'s."""
+    x = run_capacity_solve(inp, d_pad=d_pad, device=device)
     return solve_capacity_from_x(inp, x)
 
 

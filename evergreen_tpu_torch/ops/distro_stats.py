@@ -24,6 +24,8 @@ STAT_NAMES = (
     "d_length", "d_deps_met", "d_expected_dur_s", "d_over_count",
     "d_over_dur_s", "d_wait_over", "d_merge",
 )
+#: the two f32 duration sums; the other statistics are counts
+STAT_SUMS = ("d_expected_dur_s", "d_over_dur_s")
 
 _FLAG_DTYPES = (torch.bool, torch.uint8)
 
@@ -37,7 +39,10 @@ def fused_distro_stats_plain(
     d_task_offset, d_thresh,
 ) -> Dict[str, torch.Tensor]:
     """The plain PyTorch version: a segment id per task from the offsets,
-    then seven ``index_add_`` segment sums (in task order on the CPU)."""
+    then seven ``index_add_`` segment sums. On the CPU ``index_add_`` adds
+    in task order, so each duration sum is a left fold in element order,
+    as the kernel's is; on a CUDA tensor it adds with atomics, in no
+    fixed order."""
     n = t_valid.shape[0]
     D = d_thresh.shape[0]
     offs = d_task_offset.long()

@@ -42,6 +42,8 @@ The plane still owns:
     broken fused program degrades to two-call, not to the heuristic),
     and repeated failures open the breaker so later ticks skip the
     failing rung entirely (the PR-1 shape, same knobs);
+  * kernel faults — a kernel that fails to build or launch
+    (``KernelError``) is no capacity failure and raises out of the tick;
   * provenance — every applied solve leaves a ``CapacityProvenance`` on
     the store (``scheduler/provenance.py``) so "why did distro X get k
     hosts" is answerable after the tick.
@@ -62,6 +64,7 @@ from ..cloud.manager import default_pool_prices
 from ..globals import ALIAS_SUFFIX, MAX_INTENT_HOSTS_IN_FLIGHT
 from ..models.distro import Distro
 from ..ops import capacity as cap_ops
+from ..ops._build import KernelError
 from ..settings import CapacityConfig
 from ..storage.store import Store
 from ..utils import faults
@@ -163,11 +166,13 @@ class CapacityPlane:
         intent_budget: Optional[int] = None,
         packed_cols: Optional[Dict[str, tuple]] = None,
         fused: Optional[Dict] = None,
+        device=None,
     ) -> Dict[str, int]:
         """Replace eligible distros' heuristic spawn counts with the
-        joint solve's; ANY failure returns ``new_hosts`` untouched (the
-        bit-identical heuristic fallback the breaker gate pins) and
-        marks the last provenance stale.
+        joint solve's; any failure but a ``KernelError`` (a kernel that
+        fails to build or launch, which raises) returns ``new_hosts``
+        untouched (the bit-identical heuristic fallback the breaker gate
+        pins) and marks the last provenance stale.
 
         ``packed_cols`` is the solve tick's distro id → (d_pool,
         d_cap_on) read off the packed buffer (scheduler/wrapper.py);
@@ -178,7 +183,10 @@ class CapacityPlane:
         solve's capacity outputs + input columns; when present and
         healthy the tick is served from it with NO extra device call,
         and even the two-call rung runs the same full-row instance at
-        the same padded D so the fallback stays bit-identical."""
+        the same padded D so the fallback stays bit-identical.
+
+        ``device`` is where the two-call rung's program runs
+        (``run_capacity_solve``: the card when None)."""
         def mark_stale() -> None:
             # the decomposition stays readable, flagged as no longer
             # maintained
@@ -265,6 +273,8 @@ class CapacityPlane:
                     if cap_ops.check_feasible(targets, inp):
                         raise ValueError("infeasible fused targets")
                     mode = "fused"
+                except KernelError:
+                    raise
                 except Exception as exc:  # noqa: BLE001 — fused failures
                     # degrade one rung (to two-call), never straight to
                     # the heuristic
@@ -283,7 +293,7 @@ class CapacityPlane:
                     # allocations — the capacity-parity gate pins it
                     inp = build_fused_inputs(fused)
                     targets, x, chosen = cap_ops.solve_capacity(
-                        inp, d_pad=fused["d_pad"]
+                        inp, d_pad=fused["d_pad"], device=device
                     )
                 else:
                     inp = self.build_inputs(
@@ -292,7 +302,9 @@ class CapacityPlane:
                         intent_budget=solve_budget,
                         packed_cols=packed_cols,
                     )
-                    targets, x, chosen = cap_ops.solve_capacity(inp)
+                    targets, x, chosen = cap_ops.solve_capacity(
+                        inp, device=device
+                    )
                 problems = cap_ops.check_feasible(targets, inp)
                 if problems:
                     raise ValueError(
@@ -331,8 +343,13 @@ class CapacityPlane:
                         intents,
                         pool=cap_ops.pool_name_of(int(inp.pool[i])),
                     )
-        except Exception as exc:  # noqa: BLE001 — ANY capacity failure
-            # degrades to the heuristic; it must never touch the tick
+        except KernelError:
+            # a kernel that fails to build or launch is a fault of the
+            # card, not a capacity failure: it raises out of the tick
+            raise
+        except Exception as exc:  # noqa: BLE001 — ANY other capacity
+            # failure degrades to the heuristic; it must never touch the
+            # tick
             self.breaker.record_failure(now=now, error=repr(exc))
             cause = (
                 "infeasible"

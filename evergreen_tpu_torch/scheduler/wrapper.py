@@ -1,45 +1,105 @@
-"""Scheduler tick, planning half: store → gather → snapshot → bounded
-solve → unpack.
+"""Scheduler tick driver — the PlanDistro equivalent, batched.
 
-A copy of the planning half of ``evergreen_tpu/scheduler/wrapper.py``:
-the solve breaker, ``gather_tick_inputs`` (without the TickCache's
-views), ``_unpack_solve``,
-``_apply_release_mode`` and ``_solve_bounded``, whose solve is the port's
-``run_solve_packed`` on the card. A tick composes them as the JAX
-``run_tick`` body does — intent budget, ``capacity_plane_for(store)
-.build_capacity_page``, ``build_snapshot`` + ``pack_capacity_page``,
-``_solve_bounded``, ``_unpack_solve``, the ``d_pool``/``d_cap_on``
-columns and ``extract_fused_view``, the alias and single-task rules,
-``capacity_plane_for(store).apply``. ``run_tick`` itself, its options
-and result, the persister, the serial oracle, the TickCache, the
-resident plane and the tracing spans are not ported yet.
+A copy of ``evergreen_tpu/scheduler/wrapper.py``'s tick on the in-memory
+store. Reference flow (scheduler/wrapper.go:30 PlanDistro, per distro):
+underwater unschedule → find runnable → prioritize → queue info →
+persist, with host allocation as a separate per-distro job
+(units/host_allocator.go). Here ONE tick does all distros: gather the
+store into solver inputs, build the packed snapshot, run the batched
+solve on the card (``ops/solve.py::run_solve_packed``), unpack it into
+per-distro plans and queue info, plan cmp-based distros host-side, let
+the capacity plane replace opted-in spawn counts, persist one queue
+document per distro (``scheduler/persister.py``), create the intent
+hosts and log their events. A solve that raises, overruns its deadline
+or has its breaker open degrades the tick to the serial oracle
+(``scheduler/serial.py``). A kernel that fails to build or launch
+(``KernelError``) is not degraded: it raises out of the tick.
+
+``run_tick`` runs the solve and the capacity program on the card and
+raises without one unless the caller passes ``device="cpu"``. It always
+plans solver distros with the batched solve, unschedules stale
+underwater tasks and caps in-flight intents at
+``MAX_INTENT_HOSTS_IN_FLIGHT``: the JAX options ``planner_version``,
+``underwater_unschedule`` and ``max_intent_hosts`` are left out. Left out,
+with the JAX package's TickCache, resident state plane, sharded plane
+and durable store: ``TickOptions.use_cache``, ``use_resident``,
+``solve_fn``, ``force_dims``, ``intent_budget``,
+``capacity_quota_scale`` and ``async_persist``; the fenced and
+WAL-commit branches; the tracing spans and ``TickResult.trace_id``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import threading
+import time as _time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..globals import ALIAS_SUFFIX, DEFAULT_TASK_DURATION_S
+from ..device import resolve_device
+from ..ops._build import KernelError
+from ..globals import (
+    ALIAS_SUFFIX,
+    DEFAULT_TASK_DURATION_S,
+    MAX_INTENT_HOSTS_IN_FLIGHT,
+    UNDERWATER_UNSCHEDULE_THRESHOLD_S,
+    PlannerVersion,
+)
 from ..models import distro as distro_mod
+from ..models import event as event_mod
 from ..models import host as host_mod
 from ..models import task as task_mod
 from ..models.distro import Distro
-from ..models.host import Host
+from ..models.host import Host, new_intent
 from ..models.task import Task
-from ..models.task_queue import QueueInfoView
+from ..models.task_queue import DistroQueueInfo, QueueInfoView
 from ..ops.solve import run_solve_packed
 from ..settings import ReleaseModeConfig, ServiceFlags
 from ..storage.store import Store
 from ..utils import faults
 from ..utils import lockcheck as _lockcheck
+from ..utils import metrics as _metrics
+from ..utils import overload as overload_mod
 from ..utils.circuit import CircuitBreaker
+from ..utils.log import get_logger
+from . import cmp_prioritizer, serial
+from .capacity_plane import capacity_plane_for, extract_fused_view
+from .persister import persist_task_queue, persister_state_for
 from .provenance import TickProvenance, build_provenance
 from .serial import RunningTaskEstimate
-from .snapshot import Snapshot, deps_met_for
+from .snapshot import Snapshot, build_snapshot, deps_met_for, pack_capacity_page
+
+TICK_DEGRADED = _metrics.counter(
+    "scheduler_tick_degraded_total",
+    "Tick degradations by cause (persist_failed / breaker_open / "
+    "solve_failed / shed); one tick can count several causes.",
+    labels=("cause",),
+    legacy=lambda labels: [f"scheduler.tick.{labels['cause']}"],
+)
+TICKS_TOTAL = _metrics.counter(
+    "scheduler_ticks_total",
+    "Completed scheduler ticks by outcome ('ok' or the degradation "
+    "reason carried on TickResult.degraded).",
+    labels=("outcome",),
+)
+TICK_MS = _metrics.histogram(
+    "scheduler_tick_duration_ms",
+    "Wall time of one full scheduling tick (gather through persist).",
+)
+TICK_PHASE_MS = _metrics.histogram(
+    "scheduler_tick_phase_duration_ms",
+    "Wall time of each tick pipeline phase (delta_drain / pack / solve "
+    "/ unpack / cmp / capacity / persist).",
+    labels=("phase",),
+)
+INTENT_BUDGET_CLAMPED = _metrics.counter(
+    "scheduler_intent_budget_clamped_total",
+    "Requested intent hosts NOT created because the in-flight intent "
+    "budget was exhausted — each unit is one host the allocator wanted "
+    "but the cap rejected.",
+)
 
 _breakers_lock = _lockcheck.make_lock("sched.tick_caches")
 
@@ -52,6 +112,8 @@ SOLVE_BREAKER_COOLDOWN_S = 60.0
 
 #: per-store circuit breakers around the packed device solve
 _solve_breakers: Dict[int, tuple] = {}
+#: per-store snapshot dims memos (the bucket hysteresis across ticks)
+_dims_memos: Dict[int, tuple] = {}
 
 
 def solve_breaker_for(store: Store):
@@ -70,6 +132,58 @@ def solve_breaker_for(store: Store):
             )
             _solve_breakers[key] = entry
         return entry[1]
+
+
+def _dims_memo_for(store: Store) -> Dict[str, int]:
+    key = id(store)
+    with _breakers_lock:
+        entry = _dims_memos.get(key)
+        if entry is None or entry[0] is not store:
+            entry = (store, {})
+            _dims_memos[key] = entry
+        return entry[1]
+
+
+@dataclasses.dataclass
+class TickOptions:
+    max_scheduled_per_distro: int = 0
+    create_intent_hosts: bool = True
+    #: wall budget for the packed device solve; an overrun counts as a
+    #: breaker failure and the tick falls back to the serial oracle
+    #: (0 = no deadline)
+    solve_deadline_s: float = 0.0
+    #: whole-tick budget: when exceeded, optional work is shed — stats
+    #: first, then event emission — but never planning (0 = unlimited)
+    tick_budget_s: float = 0.0
+
+
+@dataclasses.dataclass
+class TickResult:
+    #: distro id -> number of queue items persisted this tick
+    queues: Dict[str, int]
+    new_hosts: Dict[str, int]
+    intent_hosts: List[Host]
+    n_tasks: int
+    n_distros: int
+    snapshot_ms: float = 0.0
+    solve_ms: float = 0.0
+    total_ms: float = 0.0
+    #: which planner actually produced the solver-distro queues:
+    #: "tpu" | "serial" | "" (no solver distros)
+    planner_used: str = ""
+    #: non-empty when the tick degraded: "solve-failed" | "solve-deadline"
+    #: | "breaker-open" | "persist-failed"
+    degraded: str = ""
+    #: optional work shed under the tick budget or the overload ladder
+    #: ("events", "stats")
+    shed: List[str] = dataclasses.field(default_factory=list)
+    #: the overload-ladder level this tick planned under
+    #: ("green" | "yellow" | "red" | "black")
+    overload: str = "green"
+    #: per-distro solve score terms (scheduler/provenance.py) so "why is
+    #: task X at rank Y" is answerable after the tick; None on serial /
+    #: degraded ticks
+    provenance: Optional[TickProvenance] = None
 
 
 def gather_tick_inputs(
@@ -313,3 +427,466 @@ def _solve_bounded(
     if kind == "err":
         raise val
     return val
+
+
+def run_tick(
+    store: Store,
+    opts: Optional[TickOptions] = None,
+    now: Optional[float] = None,
+    device=None,
+) -> TickResult:
+    """One full scheduling tick over every distro. The packed solve and
+    the two-call capacity program run on ``device``: the CUDA card when
+    None (raising without one), the CPU only when the caller passes
+    ``device="cpu"``."""
+    dev = resolve_device(device)
+    opts = opts or TickOptions()
+    now = _time.time() if now is None else now
+    t0 = _time.perf_counter()
+    # stamp the tick start on the overload ladder before any work, so a
+    # tick that blows its cadence is visible as lag on the NEXT
+    # evaluation even if everything below degrades
+    overload_mod.monitor_for(store).note_tick_start(now)
+    result = _run_tick_body(store, opts, now, t0, persister_state_for(store), dev)
+    TICK_MS.observe(result.total_ms)
+    TICKS_TOTAL.inc(outcome=result.degraded or "ok")
+    return result
+
+
+def _run_tick_body(
+    store: Store,
+    opts: TickOptions,
+    now: float,
+    t0: float,
+    pstate,
+    dev,
+) -> TickResult:
+    task_mod.unschedule_stale_underwater(
+        store, "", now, UNDERWATER_UNSCHEDULE_THRESHOLD_S
+    )
+
+    # the cold gather: the finders' runnable tasks and active hosts
+    # become this tick's solver inputs
+    t_gather = _time.perf_counter()
+    (
+        distros,
+        tasks_by_distro,
+        hosts_by_distro,
+        running_estimates,
+        deps_met,
+    ) = gather_tick_inputs(store, now)
+    TICK_PHASE_MS.observe(
+        (_time.perf_counter() - t_gather) * 1e3, phase="delta_drain"
+    )
+
+    distros = _apply_release_mode(store, distros)
+
+    queues: Dict[str, int] = {}
+    new_hosts: Dict[str, int] = {}
+    intent_hosts: List[Host] = []
+    snapshot_ms = solve_ms = 0.0
+    n_tasks = sum(len(v) for v in tasks_by_distro.values())
+
+    # Per-distro planner selection (reference scheduler/scheduler.go:28
+    # PrioritizeTasks): cmp-based distros are planned host-side with the
+    # comparator chain; everything else goes through the batched solve.
+    cmp_distros = [
+        d for d in distros
+        if d.planner_settings.version == PlannerVersion.CMP_BASED.value
+    ]
+    solver_distros = [
+        d for d in distros
+        if d.planner_settings.version != PlannerVersion.CMP_BASED.value
+    ]
+
+    plans: Dict[str, List[Task]] = {}
+    sort_values: Dict[str, Dict[str, float]] = {}
+    infos: Dict[str, DistroQueueInfo] = {}
+    #: positional deps-met columns from the solve's unpack; distros
+    #: planned host-side (cmp/serial) fall back to the dict
+    met_cols: Dict[str, List[bool]] = {}
+    planner_used = ""
+    degraded = ""
+    shed: List[str] = []
+    provenance = None
+    #: distro id → (pool index, capacity opt-in) read off the packed
+    #: d_pool / d_cap_on buffer columns on solve ticks; None on
+    #: serial/cmp ticks — the plane re-derives from the distros
+    capacity_cols = None
+    #: True when a tick that WANTED the device solve fell back to the
+    #: serial oracle (raise/deadline/breaker): the capacity plane must
+    #: not solve on top of oracle-fallback numbers, but a deliberately
+    #: serial-planned tick is fine
+    solve_degraded = False
+    _rlog = get_logger("resilience")
+
+    # The tick's intent budget, computed BEFORE the solve so the fused
+    # capacity page can ship it to the device and the joint solve
+    # optimizes within exactly the allowance the creation loop below
+    # enforces. Nothing between here and the creation loop mints
+    # intents, so the count stays honest.
+    if opts.create_intent_hosts:
+        budget = max(
+            0,
+            # the global cap on in-flight intent hosts
+            # (units/host_allocator.go:35)
+            MAX_INTENT_HOSTS_IN_FLIGHT
+            - host_mod.count_intents_in_flight(store),
+        )
+    else:
+        budget = 0  # the 4k-host scan is pure cost when intents are off
+
+    #: extract_fused_view's capture of the packed solve's capacity
+    #: outputs — the fused rung of the capacity plane's fallback ladder;
+    #: None on serial/cmp ticks, failed solves, or without a page
+    fused_view = None
+
+    # Circuit-broken device path (the reference's planner=tpu → tunable
+    # downgrade): a raising or deadline-blowing solve degrades THIS tick
+    # to the serial oracle; repeated failures open the breaker so
+    # subsequent ticks skip the device path until half-open probes pass.
+    want_tpu = bool(solver_distros)
+    breaker = solve_breaker_for(store) if want_tpu else None
+    if want_tpu and not breaker.allow(now=now):
+        want_tpu = False
+        solve_degraded = True
+        degraded = "breaker-open"
+        TICK_DEGRADED.inc(cause="breaker_open")
+        _rlog.warning(
+            "degraded-tick", reason=degraded, fallback="serial"
+        )
+    if want_tpu:
+        try:
+            t1 = _time.perf_counter()
+            # the fused capacity page: pool economics + budget/knobs as
+            # packed columns, so the capacity program runs INSIDE this
+            # tick's one solve (None keeps the device block a no-op)
+            capacity_page = None
+            if opts.create_intent_hosts:
+                capacity_page = capacity_plane_for(store).build_capacity_page(
+                    intent_budget=budget,
+                )
+            snapshot = build_snapshot(
+                solver_distros, tasks_by_distro, hosts_by_distro,
+                running_estimates, deps_met, now,
+                dims_memo=_dims_memo_for(store),
+            )
+            pack_capacity_page(snapshot.arrays, capacity_page)
+            t2 = _time.perf_counter()
+            out = _solve_bounded(
+                store, snapshot, opts.solve_deadline_s,
+                solve_fn=functools.partial(run_solve_packed, device=dev),
+            )
+            t3 = _time.perf_counter()
+            snapshot_ms = (t2 - t1) * 1e3
+            solve_ms = (t3 - t2) * 1e3
+            TICK_PHASE_MS.observe(snapshot_ms, phase="pack")
+            TICK_PHASE_MS.observe(solve_ms, phase="solve")
+            (plans, sort_values, infos, new_hosts, met_cols,
+             info_epoch, provenance) = _unpack_solve(snapshot, out)
+            TICK_PHASE_MS.observe(
+                (_time.perf_counter() - t3) * 1e3, phase="unpack"
+            )
+            pstate.note_solve_infos(*info_epoch)
+            _dpool = np.asarray(snapshot.arrays["d_pool"])
+            _dcap = np.asarray(snapshot.arrays["d_cap_on"])
+            capacity_cols = {
+                did: (int(_dpool[i]), bool(_dcap[i]))
+                for i, did in enumerate(snapshot.distro_ids)
+            }
+            if capacity_page is not None:
+                fused_view = extract_fused_view(snapshot, out)
+            planner_used = "tpu"
+            breaker.record_success(now=now)
+        except KernelError:
+            # the card cannot run its kernels: a fault to fix, not work
+            # to move to the host
+            raise
+        except Exception as exc:  # noqa: BLE001 — ANY other solve-path
+            # failure degrades the tick; it must never kill it
+            want_tpu = False
+            solve_degraded = True
+            degraded = (
+                "solve-deadline" if isinstance(exc, TimeoutError)
+                else "solve-failed"
+            )
+            breaker.record_failure(now=now, error=repr(exc))
+            TICK_DEGRADED.inc(cause="solve_failed")
+            _rlog.error(
+                "degraded-tick",
+                reason=degraded,
+                fallback="serial",
+                error=repr(exc)[-300:],
+            )
+            plans, sort_values, infos, met_cols = {}, {}, {}, {}
+            new_hosts = {}
+            provenance = None
+            capacity_cols = None
+            fused_view = None
+    if not want_tpu and solver_distros:
+        results = serial.serial_tick(
+            solver_distros, tasks_by_distro, hosts_by_distro,
+            running_estimates, deps_met, now,
+        )
+        plans = {d: r[0] for d, r in results.items()}
+        infos = {d: r[1] for d, r in results.items()}
+        new_hosts = {d: r[2] for d, r in results.items()}
+        sort_values = {d: r[3] for d, r in results.items()}
+        planner_used = "serial"
+        # a serial tick writes dataclass info docs; the next solve tick
+        # must not trust a stale info epoch
+        pstate.note_solve_infos(None)
+
+    if cmp_distros:
+        t_cmp = _time.perf_counter()
+        # only the version docs the cmp tasks actually reference (the
+        # merge-queue comparator reads the version's requester)
+        version_ids = {
+            t.version
+            for d in cmp_distros
+            for t in tasks_by_distro.get(d.id, [])
+            if t.version
+        }
+        version_requesters = {
+            doc["_id"]: doc.get("requester", "")
+            for doc in store.collection("versions").find_ids(version_ids)
+        }
+        for d in cmp_distros:
+            plan = cmp_prioritizer.prioritize_tasks(
+                tasks_by_distro.get(d.id, []), version_requesters
+            )
+            info, n_new = serial.queue_info_and_new_hosts(
+                d, plan, deps_met, hosts_by_distro.get(d.id, []),
+                running_estimates, now,
+            )
+            plans[d.id] = plan
+            infos[d.id] = info
+            new_hosts[d.id] = n_new
+            sort_values[d.id] = {}
+        TICK_PHASE_MS.observe(
+            (_time.perf_counter() - t_cmp) * 1e3, phase="cmp"
+        )
+
+    # Alias rows plan queues but never allocate hosts (the reference's
+    # alias scheduler has no allocator job, units/scheduler_alias.go) —
+    # drop their solve outputs from the reported spawn counts.
+    for k in [k for k in new_hosts if k.endswith(ALIAS_SUFFIX)]:
+        del new_hosts[k]
+
+    # Single-task distros allocate 1:1 with dependency-met tasks (reference
+    # units/host_allocator.go:174-181), bypassing the utilization heuristic.
+    for d in distros:
+        if d.single_task_distro and d.id in new_hosts:
+            info = infos.get(d.id)
+            demand = info.length_with_dependencies_met if info else 0
+            existing = len(hosts_by_distro.get(d.id, []))
+            cap = d.host_allocator_settings.maximum_hosts or demand
+            new_hosts[d.id] = max(0, min(demand, cap - existing))
+
+    # Capacity plane: distros opted into the joint (distros × pools)
+    # program get their heuristic spawn counts replaced by the batched
+    # solve's — served straight from the fused view when this tick's
+    # solve carried a capacity page; any failure leaves the heuristic
+    # counts untouched (scheduler/capacity_plane.py owns the breakers +
+    # fallback ladder).
+    if opts.create_intent_hosts and new_hosts:
+        t_cap = _time.perf_counter()
+        new_hosts = capacity_plane_for(store).apply(
+            distros, infos, new_hosts, hosts_by_distro, now,
+            degraded=solve_degraded,
+            intent_budget=budget,
+            packed_cols=capacity_cols,
+            # a cmp distro draws from the same budget but is invisible
+            # to the packed solve: the device's reserved-wants mirror
+            # would be wrong, so mixed ticks pin the two-call rung
+            fused=fused_view if not cmp_distros else None,
+            device=dev,
+        )
+        TICK_PHASE_MS.observe(
+            (_time.perf_counter() - t_cap) * 1e3, phase="capacity"
+        )
+
+    # Brownout: at RED or worse the ladder sheds the tick's optional
+    # work (stats, event emission) up front — the same work the tick
+    # budget sheds reactively, but driven by SERVICE-wide load instead
+    # of this tick's own overrun
+    olevel = overload_mod.monitor_for(store).evaluate()
+
+    def _shed_optional() -> str:
+        """"" when optional work may run, else the shed reason."""
+        if olevel >= overload_mod.RED:
+            return "overload"
+        if (
+            opts.tick_budget_s > 0
+            and _time.perf_counter() - t0 > opts.tick_budget_s
+        ):
+            return "budget-exceeded"
+        return ""
+
+    t_persist = _time.perf_counter()
+    for d in distros:
+        plan = plans.get(d.id, [])
+        is_alias = d.id.endswith(ALIAS_SUFFIX)
+        base_id = d.id[: -len(ALIAS_SUFFIX)] if is_alias else d.id
+        info = infos.get(d.id, DistroQueueInfo())
+        info.secondary_queue = is_alias
+        try:
+            queues[d.id] = persist_task_queue(
+                store,
+                base_id,
+                plan,
+                sort_values.get(d.id, {}),
+                met_cols.get(d.id, deps_met),
+                info,
+                opts.max_scheduled_per_distro,
+                secondary=is_alias,
+                now=now,
+                state=pstate,
+            )
+        except Exception as exc:  # noqa: BLE001 — isolate per distro
+            queues[d.id] = 0
+            # the doc may be half-written: drop its fingerprint so the
+            # next tick full-rewrites instead of patching a broken base
+            pstate._fps.pop((base_id, is_alias), None)
+            degraded = degraded or "persist-failed"
+            TICK_DEGRADED.inc(cause="persist_failed")
+            _rlog.error(
+                "queue-persist-failed",
+                distro=base_id,
+                error=repr(exc)[-300:],
+            )
+            continue
+        if is_alias:
+            continue  # alias rows never spawn hosts (units/scheduler_alias.go)
+        if opts.create_intent_hosts:
+            want = new_hosts.get(d.id, 0)
+            n = min(want, budget)
+            if want > n:
+                # the allocator asked for more than the in-flight budget
+                # allows: count every rejected host so a starved fleet
+                # budget is visible, never silent
+                INTENT_BUDGET_CLAMPED.inc(want - n)
+            budget -= n
+            created = []
+            try:
+                for _ in range(n):
+                    intent = new_intent(d.id, d.provider)
+                    host_mod.insert(store, intent)
+                    created.append(intent)
+            except Exception as exc:  # noqa: BLE001 — isolate per distro
+                degraded = degraded or "persist-failed"
+                TICK_DEGRADED.inc(cause="persist_failed")
+                _rlog.error(
+                    "intent-create-failed",
+                    distro=base_id,
+                    error=repr(exc)[-300:],
+                )
+            intent_hosts.extend(created)
+            if created:
+                # event emission is optional work: over the tick budget
+                # (or under brownout) it is shed before anything that
+                # affects planning
+                shed_reason = _shed_optional()
+                if shed_reason:
+                    if "events" not in shed:
+                        shed.append("events")
+                        overload_mod.record_shed(
+                            store, "tick", "events", detail=shed_reason
+                        )
+                    continue
+                try:
+                    event_mod.log(
+                        store,
+                        event_mod.RESOURCE_HOST,
+                        "HOSTS_CREATED",
+                        d.id,
+                        {"count": len(created)},
+                        timestamp=now,
+                    )
+                except Exception as exc:  # noqa: BLE001 — events are
+                    # optional work; a storage fault here never kills
+                    # the tick
+                    degraded = degraded or "persist-failed"
+                    TICK_DEGRADED.inc(cause="persist_failed")
+                    _rlog.error(
+                        "event-emit-failed",
+                        distro=base_id,
+                        error=repr(exc)[-300:],
+                    )
+    TICK_PHASE_MS.observe(
+        (_time.perf_counter() - t_persist) * 1e3, phase="persist"
+    )
+
+    # Stats are the FIRST work shed under the tick budget (before events,
+    # long before planning): the time-to-empty estimate is telemetry,
+    # not a decision.
+    worst = ("", 0.0)
+    stats_shed_reason = _shed_optional()
+    if stats_shed_reason:
+        if "stats" not in shed:
+            shed.append("stats")
+            overload_mod.record_shed(
+                store, "tick", "stats", detail=stats_shed_reason
+            )
+    else:
+        # time-to-empty estimate per tick (the reference's allocator
+        # telemetry, units/host_allocator.go:295-334): queued work over
+        # usable capacity
+        tte = {}
+        for d in distros:
+            info = infos.get(d.id)
+            if info is None or d.id.endswith(ALIAS_SUFFIX):
+                continue
+            capacity = max(
+                len(hosts_by_distro.get(d.id, [])) + new_hosts.get(d.id, 0), 1
+            )
+            tte[d.id] = round(info.expected_duration_s / capacity, 1)
+        worst = max(tte.items(), key=lambda kv: kv[1]) if tte else ("", 0.0)
+    if shed:
+        TICK_DEGRADED.inc(cause="shed")
+        _rlog.warning(
+            "degraded-tick",
+            reason=stats_shed_reason or "budget-exceeded",
+            shed=list(shed),
+            budget_s=opts.tick_budget_s,
+            overload=overload_mod.level_name(olevel),
+        )
+    total_ms = (_time.perf_counter() - t0) * 1e3
+    if provenance is not None:
+        # "why is task X at rank Y" stays answerable after the tick
+        # (scheduler/provenance.py provenance_for)
+        store._last_provenance = provenance
+    # the structured runtime-stats line operators grep for (reference
+    # grip message.Fields, scheduler/wrapper.go:93-128); it survives
+    # shedding — it IS the breadcrumb trail
+    get_logger("scheduler").info(
+        "runtime-stats",
+        operation="tick",
+        n_tasks=n_tasks,
+        n_distros=len(distros),
+        snapshot_ms=round(snapshot_ms, 2),
+        solve_ms=round(solve_ms, 2),
+        total_ms=round(total_ms, 2),
+        new_hosts=sum(new_hosts.values()),
+        worst_time_to_empty_s=worst[1],
+        worst_time_to_empty_distro=worst[0],
+        planner_used=planner_used,
+        degraded=degraded,
+        shed=list(shed),
+        overload=overload_mod.level_name(olevel),
+    )
+    return TickResult(
+        queues=queues,
+        new_hosts=new_hosts,
+        intent_hosts=intent_hosts,
+        n_tasks=n_tasks,
+        n_distros=len(distros),
+        snapshot_ms=snapshot_ms,
+        solve_ms=solve_ms,
+        total_ms=total_ms,
+        planner_used=planner_used,
+        degraded=degraded,
+        shed=shed,
+        overload=overload_mod.level_name(olevel),
+        provenance=provenance,
+    )

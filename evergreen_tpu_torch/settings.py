@@ -1,12 +1,12 @@
 """Store-backed config sections: the ones the tick's planning half reads.
 
-A copy of the part of ``evergreen_tpu/settings.py`` the slice needs:
+A copy of the part of ``evergreen_tpu/settings.py`` the tick needs:
 ``ConfigSection`` with its field-level overrides, and the
-``service_flags``, ``capacity``, ``overrides`` and ``release_mode``
-sections. Sections live in the same ``config`` collection under the same
+``service_flags``, ``capacity``, ``overrides``, ``release_mode`` and
+``overload`` sections. Sections live in the same ``config`` collection under the same
 ``_id`` with the same fields, so a section one package writes reads back
 the same in the other (``tests/test_torch_store.py``). The registry holds
-these four sections only, so an override of a section the port lacks is
+these five sections only, so an override of a section the port lacks is
 refused as unknown; the other sections are not ported.
 """
 from __future__ import annotations
@@ -251,4 +251,77 @@ class ReleaseModeConfig(ConfigSection):
         if self.idle_time_seconds_override < 0:
             # a negative cutoff would instantly reap every free host
             return "idle_time_seconds_override must be >= 0"
+        return ""
+
+
+@register_section
+@dataclasses.dataclass
+class OverloadConfig(ConfigSection):
+    """Overload-protection ladder knobs (consumed by
+    utils/overload.LoadMonitor; the tick sheds its optional stats and
+    event emission at RED or worse).
+
+    Each ``*_levels`` list is the [yellow, red, black] threshold triple
+    for one fused signal; a 0 threshold disables that rung for that
+    signal. ``queue_max_pending``, ``outbox_cap`` and the Retry-After
+    seconds are the JAX package's job-queue, outbox and API knobs: the
+    port keeps them so the section's document is the same in both."""
+
+    section_id = "overload"
+
+    enabled: bool = True
+    #: the scheduler cadence the tick-lag signal is measured against
+    tick_cadence_s: float = 15.0
+    #: consecutive calm evaluations before the level steps DOWN
+    hysteresis_ticks: int = 3
+    #: how often gauge pushes may auto-re-evaluate the ladder
+    eval_interval_s: float = 1.0
+    #: hard cap on the JobQueue pending set (sheds lowest class only)
+    queue_max_pending: int = 1000
+    #: hard cap on undelivered rows per notification outbox collection
+    outbox_cap: int = 5000
+    queue_pending_levels: List[float] = dataclasses.field(
+        default_factory=lambda: [200.0, 500.0, 1000.0]
+    )
+    outbox_depth_levels: List[float] = dataclasses.field(
+        default_factory=lambda: [1000.0, 3000.0, 5000.0]
+    )
+    wal_backlog_levels: List[float] = dataclasses.field(
+        default_factory=lambda: [4.0, 16.0, 64.0]
+    )
+    store_latency_ms_levels: List[float] = dataclasses.field(
+        default_factory=lambda: [250.0, 1000.0, 5000.0]
+    )
+    #: seconds the tick runs PAST its cadence
+    tick_lag_levels_s: List[float] = dataclasses.field(
+        default_factory=lambda: [10.0, 30.0, 90.0]
+    )
+    api_rps_levels: List[float] = dataclasses.field(
+        default_factory=lambda: [200.0, 500.0, 2000.0]
+    )
+    #: Retry-After the API sends while shedding at each level
+    retry_after_red_s: float = 30.0
+    retry_after_black_s: float = 60.0
+
+    def validate_and_default(self) -> str:
+        for name in (
+            "queue_pending_levels",
+            "outbox_depth_levels",
+            "wal_backlog_levels",
+            "store_latency_ms_levels",
+            "tick_lag_levels_s",
+            "api_rps_levels",
+        ):
+            levels = getattr(self, name)
+            if not isinstance(levels, list) or len(levels) != 3:
+                return f"{name} must be a [yellow, red, black] triple"
+            if any(not isinstance(v, (int, float)) or v < 0 for v in levels):
+                return f"{name} entries must be numbers >= 0"
+            active = [v for v in levels if v > 0]
+            if active != sorted(active):
+                return f"{name} must be non-decreasing"
+        if self.hysteresis_ticks < 1:
+            self.hysteresis_ticks = 1
+        if self.queue_max_pending < 0 or self.outbox_cap < 0:
+            return "caps cannot be negative"
         return ""

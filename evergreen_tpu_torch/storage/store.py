@@ -5,11 +5,12 @@ A copy of the in-memory part of ``evergreen_tpu/storage/store.py``:
 reads the same documents in the same order from either package's store.
 ``find`` returns the stored documents themselves, in insertion order,
 without copying them (``snapshot`` is the deep-copying read); an upsert
-of an existing id keeps its place. The durable store's hooks (the write
-journal, change listeners, the tick-scoped commit and fencing calls,
-``apply_wal_record``) and the delta persister's write shapes (``patch``,
-``patch_list``, ``splice_queue``, ``bulk_update``) come with the
-persister.
+of an existing id keeps its place. The delta persister's write shapes
+(``bulk_update``, ``patch``, ``patch_list``, ``splice_queue``) apply
+their changes as the JAX store's do. The durable store's hooks (the
+write journal, change listeners, the tick-scoped commit and fencing
+calls, ``apply_wal_record``) wait for a durable store: on the in-memory
+store they do nothing.
 
 Thread-safety: a single re-entrant lock guards each collection. The scheduler
 tick itself never blocks on this lock for long — the snapshot builder reads
@@ -174,6 +175,110 @@ class Collection:
                     doc.update(update)
                     n += 1
             return n
+
+    def bulk_update(
+        self,
+        ids: Iterable[str],
+        fields: Dict[str, Any],
+        only_if: Optional[Callable[[dict], bool]] = None,
+    ) -> int:
+        """Apply the SAME ``fields`` to every existing doc in ``ids``
+        (optionally gated per-doc by ``only_if``, checked under the lock)
+        in one lock acquisition — the tick's task stamping. Returns the
+        number of docs updated."""
+        with self._lock:
+            n = 0
+            for doc_id in ids:
+                doc = self._docs.get(doc_id)
+                if doc is None or (only_if is not None and not only_if(doc)):
+                    continue
+                doc.update(fields)
+                n += 1
+            return n
+
+    def patch(self, doc_id: str, fields: Dict[str, Any]) -> bool:
+        """Field-level doc update — the delta persister's column patch
+        for big docs whose dynamic columns churn while the bulk stays put
+        (queue docs: sort_value/dependencies_met vs 50k rows)."""
+        with self._lock:
+            doc = self._docs.get(doc_id)
+            if doc is None:
+                return False
+            doc.update(fields)
+            return True
+
+    def patch_list(
+        self,
+        doc_id: str,
+        elems: Dict[str, Any],
+        fields: Optional[Dict[str, Any]] = None,
+    ) -> bool:
+        """Sparse element-level patch of list fields: ``elems`` maps field
+        name → ``(indices, values)`` applied positionally; ``fields`` are
+        whole-field patches applied with them (version bump,
+        generated_at). Refuses (False) when an index is past its list."""
+        with self._lock:
+            doc = self._docs.get(doc_id)
+            if doc is None:
+                return False
+            for name, (idx, vals) in elems.items():
+                lst = doc.get(name)
+                if lst is None or (idx and idx[-1] >= len(lst)):
+                    return False  # base shape mismatch: caller rewrites
+            for name, (idx, vals) in elems.items():
+                lst = doc[name]
+                for i, v in zip(idx, vals):
+                    lst[i] = v
+            if fields:
+                doc.update(fields)
+            return True
+
+    def splice_queue(
+        self,
+        doc_id: str,
+        rm_idx: List[int],
+        inserts: List[tuple],
+        fields: Optional[Dict[str, Any]] = None,
+        elems: Optional[Dict[str, Any]] = None,
+    ) -> bool:
+        """Row-level splice of a queue doc's three aligned columns
+        (``rows`` / ``sort_value`` / ``dependencies_met``) — the
+        churn-tick write shape of the delta persister. ``rm_idx``
+        (ascending, pre-splice indices) removes rows; ``inserts`` is
+        ``[(idx, row, sort, met), ...]`` with ``idx`` the position in the
+        FINAL list (ascending); ``fields`` are whole-field patches (order
+        permutation, version bump) and ``elems`` sparse element patches
+        applied AFTER the splice."""
+        with self._lock:
+            doc = self._docs.get(doc_id)
+            if doc is None:
+                return False
+            rows = doc.get("rows")
+            sv = doc.get("sort_value")
+            dm = doc.get("dependencies_met")
+            if rows is None or sv is None or dm is None:
+                return False
+            n = len(rows)
+            if len(sv) != n or len(dm) != n:
+                return False
+            if rm_idx and (rm_idx[-1] >= n or rm_idx[0] < 0):
+                return False
+            for i in reversed(rm_idx):
+                del rows[i]
+                del sv[i]
+                del dm[i]
+            for i, row, s, m in inserts:
+                rows.insert(i, row)
+                sv.insert(i, s)
+                dm.insert(i, m)
+            if elems:
+                for name, (idx, vals) in elems.items():
+                    lst = doc[name]
+                    for i, v in zip(idx, vals):
+                        lst[i] = v
+            if fields:
+                doc.update(fields)
+            return True
 
     def mutate(self, doc_id: str, fn: Callable[[dict], None]) -> bool:
         """Run ``fn`` on the document under the collection lock."""

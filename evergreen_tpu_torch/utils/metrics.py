@@ -1,8 +1,8 @@
 """Typed metrics: labeled Counter and Histogram instruments in one
 process-wide registry.
 
-The part of ``evergreen_tpu/utils/metrics.py`` the capacity plane, the
-breakers and the fault seams use: instruments are registered once with a
+The part of ``evergreen_tpu/utils/metrics.py`` the tick, the capacity
+plane, the overload ladder, the breakers and the fault seams use: instruments are registered once with a
 help string and labels from a fixed vocabulary, label sets are bounded
 (past ``DEFAULT_MAX_SERIES`` combinations new ones fold into one ``other``
 series), histograms are fixed-bucket, and ``state``/``snapshot_delta``

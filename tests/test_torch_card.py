@@ -146,11 +146,17 @@ def test_distro_stats_kernel_matches_plain(which, cuda_device):
     got = fused_distro_stats(*args)
     torch.cuda.synchronize()
     assert fused_distro_stats.launches == before + 1
-    want = fused_distro_stats_plain(*args)
+    # counts and both duration sums bit-equal to the plain version on the
+    # CPU: the kernel adds each sum in element order, as index_add_ does
+    # there (on the card index_add_ adds with atomics, in no fixed order)
+    want = fused_distro_stats_plain(*(x.cpu() for x in args))
+    on_card = fused_distro_stats_plain(*args)
+    for name in COUNTS + SUMS:
+        assert torch.equal(got[name].cpu(), want[name]), name
     for name in COUNTS:
-        assert torch.equal(got[name], want[name]), name
+        assert torch.equal(got[name], on_card[name]), name
     for name in SUMS:
-        torch.testing.assert_close(got[name], want[name], rtol=1e-5, atol=0.0)
+        torch.testing.assert_close(got[name], on_card[name], rtol=1e-5, atol=0.0)
     again = fused_distro_stats(*args)
     for name in STAT_NAMES:
         assert torch.equal(got[name], again[name]), name
@@ -310,6 +316,93 @@ def test_card_two_call_program_is_the_fused_rung(cuda_device):
     cpu_t, _, cpu_chosen = solve_capacity_from_x(inp, cpu)
     np.testing.assert_array_equal(card_t, cpu_t)
     assert card_chosen == cpu_chosen
+
+
+@pytest.mark.cuda
+def test_card_tick_writes_the_cpu_documents(cuda_device, monkeypatch):
+    """Two ``run_tick``s (the second after a churn) on a generated store
+    with every distro opted into the capacity program, on the card and
+    on the CPU: the same queue, task, host and event documents, the same
+    result, and each solve tick launching 1 ``fused_distro_stats`` and
+    5 + 48 ``segment_sum``."""
+    import itertools
+    import random
+    import time
+    import uuid
+
+    from evergreen_tpu_torch.models import distro as distro_mod
+    from evergreen_tpu_torch.models import event as event_mod
+    from evergreen_tpu_torch.models import host as host_mod
+    from evergreen_tpu_torch.models import task as task_mod
+    from evergreen_tpu_torch.scheduler import wrapper
+    from evergreen_tpu_torch.settings import CapacityConfig
+    from evergreen_tpu_torch.storage.store import Store
+
+    distros, tbd, hbd, _, _ = generate_problem(12, 2_000, seed=4)
+    stores = {}
+    for key in ("cuda", "cpu"):
+        store = stores[key] = Store()
+        for d in distros:
+            d = distro_mod.Distro.from_doc(d.to_doc())
+            d.planner_settings.capacity = "tpu"
+            distro_mod.insert(store, d)
+        task_mod.insert_many(store, [t for ts in tbd.values() for t in ts])
+        for hs in hbd.values():
+            host_mod.insert_many(store, hs)
+        CapacityConfig(pool_quotas={"mock": 300}, fleet_intent_budget=40).set(store)
+    monkeypatch.setattr(time, "time", lambda: NOW)
+    seqs = {k: itertools.count() for k in stores}
+    for k, now in enumerate((NOW, NOW + 15)):
+        results = {}
+        for key, store in stores.items():
+            if k == 1:
+                tasks = store.collection("tasks")
+                for doc in tasks.find()[::17]:
+                    tasks.update(doc["_id"], {"status": "dispatched"})
+            rng = random.Random(k)
+            monkeypatch.setattr(uuid, "uuid4",
+                                lambda rng=rng: uuid.UUID(int=rng.getrandbits(128)))
+            monkeypatch.setattr(event_mod, "_SEQ", seqs[key])
+            fds0, ss0 = fused_distro_stats.launches, segment_sum.launches
+            results[key] = wrapper.run_tick(store, wrapper.TickOptions(), now=now,
+                                            device=None if key == "cuda" else "cpu")
+            if key == "cuda":
+                assert (fused_distro_stats.launches - fds0,
+                        segment_sum.launches - ss0) == (1, 53)
+        r, c = results["cuda"], results["cpu"]
+        assert r.planner_used == c.planner_used == "tpu" and r.degraded == ""
+        assert (r.queues, r.new_hosts, r.shed) == (c.queues, c.new_hosts, c.shed)
+        assert r.intent_hosts and [h.to_doc() for h in r.intent_hosts] == [
+            h.to_doc() for h in c.intent_hosts]
+        for name in ("task_queues", "tasks", "hosts", "events"):
+            assert stores["cuda"].collection(name).find() == (
+                stores["cpu"].collection(name).find()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["distro_stats", "segment"])
+def test_card_tick_raises_a_failed_launch(kernel, cuda_device, monkeypatch):
+    """A kernel launch that returns a CUDA error raises ``KernelError``
+    out of ``run_tick``: the tick does not fall back to the serial
+    oracle on the host, and its solve breaker records no failure."""
+    from evergreen_tpu_torch.models import distro as distro_mod
+    from evergreen_tpu_torch.models import task as task_mod
+    from evergreen_tpu_torch.ops import _build, distro_stats, segment
+    from evergreen_tpu_torch.scheduler import wrapper
+    from evergreen_tpu_torch.storage.store import Store
+
+    distros, tbd, _, _, _ = generate_problem(4, 200, seed=2)
+    store = Store()
+    for d in distros:
+        distro_mod.insert(store, d)
+    task_mod.insert_many(store, [t for ts in tbd.values() for t in ts])
+    # cudaErrorLaunchFailure
+    monkeypatch.setattr({"distro_stats": distro_stats, "segment": segment}[kernel],
+                        "_launch_fn", lambda: (lambda *args: 719))
+    with pytest.raises(_build.KernelError, match="cudaError_t 719"):
+        wrapper.run_tick(store, wrapper.TickOptions(), now=NOW)
+    assert wrapper.solve_breaker_for(store)._consecutive_failures == 0
+    assert store.collection("task_queues").find() == []
 
 
 def test_entry_points_need_a_card_unless_cpu(tmp_path):

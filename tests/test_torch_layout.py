@@ -267,6 +267,87 @@ def test_tick_plan_constants_match_the_jax_package():
             (e.name, e.value) for e in getattr(j_globals, enum_name)], enum_name
 
 
+def test_tick_constants_match_the_jax_package():
+    """The whole tick's copies: the queue document's columns and
+    collections, the persister's fingerprint layout and info keys, the
+    event resource constants, the overload ladder's levels, collection
+    and config defaults, the cmp planner's comparator chain, the tick's
+    instruments and options, and the globals the tick reads."""
+    from evergreen_tpu import settings as j_settings
+    from evergreen_tpu.models import event as j_event
+    from evergreen_tpu.models import task_queue as j_queue
+    from evergreen_tpu.scheduler import cmp_prioritizer as j_cmp
+    from evergreen_tpu.scheduler import persister as j_persister
+    from evergreen_tpu.scheduler import wrapper as j_wrapper
+    from evergreen_tpu.utils import overload as j_overload
+
+    from evergreen_tpu_torch import settings as t_settings
+    from evergreen_tpu_torch.models import event as t_event
+    from evergreen_tpu_torch.models import task_queue as t_queue
+    from evergreen_tpu_torch.scheduler import cmp_prioritizer as t_cmp
+    from evergreen_tpu_torch.scheduler import persister as t_persister
+    from evergreen_tpu_torch.scheduler import wrapper as t_wrapper
+    from evergreen_tpu_torch.utils import overload as t_overload
+
+    for name in ("COLLECTION", "SECONDARY_COLLECTION", "ROW_FIELDS",
+                 "_ROW_INDEX", "_ITEM_FIELDS"):
+        assert getattr(t_queue, name) == getattr(j_queue, name), name
+    assert t_persister._Fingerprint.__slots__ == j_persister._Fingerprint.__slots__
+    assert t_persister.PersisterState._D_KEYS == j_persister.PersisterState._D_KEYS
+    assert t_persister.PersisterState._G_KEYS == j_persister.PersisterState._G_KEYS
+    t_state, j_state = t_persister.PersisterState(), j_persister.PersisterState()
+    assert vars(t_state).keys() == vars(j_state).keys()
+    assert t_event.COLLECTION == j_event.COLLECTION
+    for name in ("RESOURCE_HOST", "RESOURCE_ADMIN"):
+        assert getattr(t_event, name) == getattr(j_event, name), name
+    for name in ("GREEN", "YELLOW", "RED", "BLACK", "LEVEL_NAMES",
+                 "SHEDS_COLLECTION"):
+        assert getattr(t_overload, name) == getattr(j_overload, name), name
+    assert t_settings.OverloadConfig.section_id == j_settings.OverloadConfig.section_id
+    assert dataclasses.asdict(t_settings.OverloadConfig()) == dataclasses.asdict(
+        j_settings.OverloadConfig())
+    assert [n for n, _ in t_cmp.COMPARATORS] == [n for n, _ in j_cmp.COMPARATORS]
+    for t_mod, j_mod, names in (
+        (t_wrapper, j_wrapper, ("TICK_DEGRADED", "TICKS_TOTAL", "TICK_MS",
+                                "TICK_PHASE_MS", "INTENT_BUDGET_CLAMPED")),
+        (t_overload, j_overload, ("LEVEL_CHANGES", "SHEDS")),
+    ):
+        for name in names:
+            t_i, j_i = getattr(t_mod, name), getattr(j_mod, name)
+            assert (t_i.kind, t_i.name, t_i.labelnames) == (
+                j_i.kind, j_i.name, j_i.labelnames), name
+    # the port's options and result are the JAX ones less the fields of
+    # the parts it has not ported (TickCache, resident and sharded
+    # planes, durable store, tracing), with the same defaults
+    for t_cls, j_cls in ((t_wrapper.TickOptions, j_wrapper.TickOptions),
+                         (t_wrapper.TickResult, j_wrapper.TickResult)):
+        j_fields = {f.name: f for f in dataclasses.fields(j_cls)}
+        for f in dataclasses.fields(t_cls):
+            j_f = j_fields[f.name]
+            assert (f.default, f.default_factory) == (
+                j_f.default, j_f.default_factory) or (
+                f.default_factory is not dataclasses.MISSING
+                and f.default_factory() == j_f.default_factory()), f.name
+    assert {f.name for f in dataclasses.fields(j_wrapper.TickOptions)} - {
+        f.name for f in dataclasses.fields(t_wrapper.TickOptions)} == {
+        "use_cache", "use_resident", "solve_fn", "force_dims",
+        "intent_budget", "capacity_quota_scale", "async_persist",
+        "planner_version", "underwater_unschedule", "max_intent_hosts"}
+    assert {f.name for f in dataclasses.fields(j_wrapper.TickResult)} - {
+        f.name for f in dataclasses.fields(t_wrapper.TickResult)} == {"trace_id"}
+    # what the port's tick fixes in place of those options
+    assert j_wrapper.TickOptions().planner_version == t_globals.PlannerVersion.TPU.value
+    assert j_wrapper.TickOptions().underwater_unschedule is True
+    assert j_wrapper.TickOptions().max_intent_hosts == t_globals.MAX_INTENT_HOSTS_IN_FLIGHT
+    for name in ("MAX_TASK_PRIORITY", "COMMIT_QUEUE_PRIORITY_BOOST",
+                 "UNDERWATER_UNSCHEDULE_THRESHOLD_S", "GITHUB_MERGE_REQUESTER",
+                 "MAX_INTENT_HOSTS_IN_FLIGHT"):
+        assert getattr(t_globals, name) == getattr(j_globals, name), name
+    for requester in [r.value for r in j_globals.Requester] + ["", "other"]:
+        assert t_globals.is_mainline_requester(requester) == (
+            j_globals.is_mainline_requester(requester)), requester
+
+
 def _copied_dataclasses():
     """(port class, JAX class) for every dataclass the port copies."""
     from evergreen_tpu import settings as j_settings
@@ -276,7 +357,10 @@ def _copied_dataclasses():
     from evergreen_tpu.models import task_queue as j_queue
     from evergreen_tpu.scheduler import serial as j_serial
 
+    from evergreen_tpu.models import event as j_event
+
     from evergreen_tpu_torch import settings as t_settings
+    from evergreen_tpu_torch.models import event as t_event
     from evergreen_tpu_torch.models import task_queue as t_queue
 
     pairs = [
@@ -285,11 +369,15 @@ def _copied_dataclasses():
                               "FinderSettings", "Distro")),
         (t_host, j_host, ("Host",)),
         (t_task, j_task, ("Dependency", "DurationStats", "Task")),
-        (t_queue, j_queue, ("TaskGroupInfo", "DistroQueueInfo")),
+        (t_queue, j_queue, ("TaskGroupInfo", "DistroQueueInfo",
+                            "TaskQueueItem", "TaskQueue")),
+        (t_event, j_event, ("Event",)),
         (t_capacity, j_capacity, ("CapacityInputs",)),
         (t_settings, j_settings, ("ServiceFlags", "CapacityConfig",
-                                  "OverridesConfig", "ReleaseModeConfig")),
-        (t_serial, j_serial, ("RunningTaskEstimate",)),
+                                  "OverridesConfig", "ReleaseModeConfig",
+                                  "OverloadConfig")),
+        (t_serial, j_serial, ("RunningTaskEstimate", "Unit",
+                              "AllocatorInput")),
     ]
     return [(getattr(t, n), getattr(j, n)) for t, j, names in pairs
             for n in names]
@@ -341,7 +429,7 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules if banned(m))
 assert not bad, bad
-assert len(names) >= 44, names
+assert len(names) >= 48, names
 print("ok", len(names))
 """
 

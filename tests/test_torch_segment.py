@@ -176,6 +176,32 @@ def test_each_build_variant_has_its_own_library():
     assert _build._flags({"B": 2, "A": 1}) == ("-DA=1", "-DB=2")
 
 
+@pytest.mark.parametrize("fault", ["compile", "load", "launch"])
+def test_a_kernel_that_fails_raises_kernel_error(fault, monkeypatch, tmp_path):
+    """A failed compile, a library that does not load and a launch that
+    returns an error each raise ``KernelError``, which the tick lets
+    through instead of degrading to the host."""
+    from evergreen_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "_libs", {})
+    if fault == "compile":
+        monkeypatch.setattr(_build, "_nvcc", lambda: "false")
+        with pytest.raises(_build.KernelError, match="nvcc failed for segment_sum"):
+            _build.load("segment_sum")
+    elif fault == "load":
+        with open(_build._lib_path("segment_sum", {}), "wb") as f:
+            f.write(b"not a shared library")
+        with pytest.raises(_build.KernelError, match="cannot load the segment_sum"):
+            _build.load("segment_sum")
+    else:
+        _build.check_launch(0, "segment_sum")
+        with pytest.raises(_build.KernelError, match="cudaError_t 700"):
+            _build.check_launch(700, "segment_sum")
+    assert issubclass(_build.KernelError, RuntimeError)
+    assert _build._libs == {}
+
+
 def test_sweep_variants_name_the_sources_constants():
     """Every build ``chip_smoke.py --sweep`` asks for overrides macros the
     sources define, starts from the sources' own values, and fits

@@ -84,9 +84,13 @@ MODES = ("fused", "two_call", "heuristic")
 
 @pytest.fixture
 def port_cpu(monkeypatch):
-    """The port's two-call capacity program on the CPU."""
-    monkeypatch.setattr(t_cap, "run_capacity_solve", functools.partial(
-        t_cap.run_capacity_solve, device="cpu"))
+    """The port's two-call capacity program on the CPU (where a caller
+    names no device)."""
+    run = t_cap.run_capacity_solve
+    monkeypatch.setattr(
+        t_cap, "run_capacity_solve",
+        lambda inp, d_pad=None, device=None: run(
+            inp, d_pad=d_pad, device=device or "cpu"))
 
 
 # --------------------------------------------------------------------------- #
