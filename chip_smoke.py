@@ -1137,24 +1137,27 @@ TICK_COLLECTIONS = ("task_queues", "task_secondary_queues", "tasks", "hosts",
 SHAPES = ("skipped", "patched", "spliced", "rewritten")
 
 
-def seed_tick_store(store, problem) -> None:
-    """Config 3 in ``store`` with phase 6's capacity settings."""
+def seed_tick_store(store, problem, only=None) -> None:
+    """Config 3 in ``store`` with phase 6's capacity settings: every
+    distro of ``problem`` with its tasks and hosts, or those of the
+    distro ids in ``only``."""
     from evergreen_tpu_torch.models import distro as distro_mod
     from evergreen_tpu_torch.models import host as host_mod
     from evergreen_tpu_torch.models import task as task_mod
     from evergreen_tpu_torch.settings import CapacityConfig
 
     distros, tbd, hbd, _, _ = problem
+    if only is not None:
+        distros = [d for d in distros if d.id in only]
     for d in distros:
         distro_mod.insert(store, d)
-    task_mod.insert_many(store, [t for ts in tbd.values() for t in ts])
-    for hs in hbd.values():
-        host_mod.insert_many(store, hs)
-    coll = distro_mod.coll(store)
-    for doc in coll.find():
-        ps = dict(doc["planner_settings"])
+        coll = distro_mod.coll(store)
+        ps = dict(coll.get(d.id)["planner_settings"])
         ps["capacity"] = "tpu"
-        coll.update(doc["_id"], {"planner_settings": ps})
+        coll.update(d.id, {"planner_settings": ps})
+    task_mod.insert_many(store, [t for d in distros for t in tbd[d.id]])
+    for d in distros:
+        host_mod.insert_many(store, hbd[d.id])
     CapacityConfig(pool_quotas=PLAN_QUOTA, fleet_intent_budget=PLAN_BUDGET).set(store)
 
 
@@ -1346,6 +1349,297 @@ def tick_phase(torch, np, problem, card="cuda", card_first=True) -> dict:
                   f"{label}: persister shapes {shapes[card]}: expected splices, "
                   f"and patches or skips, and no rewrite")
     return total
+
+
+#: phase 8: the three stores (name, on the card, TickOptions.use_cache),
+#: ticked in this order at each step
+SERVICE_STORES = (("card warm", True, True), ("CPU warm", False, True),
+                  ("card cold", True, False))
+
+
+def service_tick_inputs(cls):
+    """Wrap ``cls.sync`` (the resident plane's) so that each call records
+    its plane, arguments and returned snapshot; returns (records, undo)."""
+    real = cls.sync
+    records = []
+
+    def sync(self, cache, *args, **kwargs):
+        snap = real(self, cache, *args, **kwargs)
+        records.append((self, args, snap))
+        return snap
+
+    cls.sync = sync
+    return records, lambda: setattr(cls, "sync", real)
+
+
+def mirror_matches_truth(np, snap) -> bool:
+    """Whether every field of the mirror's resident buffers on the card
+    equals the host truth the snapshot's views read."""
+    arena = snap.arena
+    bufs = {k: v.cpu().numpy() for k, v in arena.buffers.items()}
+    offs = {"f32": 0, "i32": 0, "u8": 0}
+    for name, kind, size in arena.layout_key():
+        off = offs[kind]
+        offs[kind] = off + size
+        if bufs[kind][off:off + size].tobytes() != np.asarray(arena.view(name)).tobytes():
+            return False
+    return True
+
+
+def slab_stats_row(torch, np, snap, cold, sm_mhz) -> dict:
+    """``fused_distro_stats`` on the card at a resident tick's slab
+    layout: held against the plain version on the CPU (bit for bit) and
+    on the card (counts exact, sums within SUM_RTOL), then its device
+    time, the plain version's, the seven ``index_add_``s over
+    ``t_distro``, and its bound; the chain is the longest distro range
+    the offsets give (slab rows, holes and headroom included). ``cold``
+    is a cold build of the same tick's gather (the same live tasks on
+    the cold layout): the kernel is held and timed on it too, the two
+    layouts alternating, so that a gap between them owes to the layout
+    and not to the inputs."""
+    from evergreen_tpu_torch.ops.distro_stats import (
+        fused_distro_stats,
+        fused_distro_stats_plain,
+    )
+    from evergreen_tpu_torch.ops.packing import unpack
+    from evergreen_tpu_torch.ops.solve import distro_stats_inputs
+
+    dev = torch.device("cuda", 0)
+    a = unpack(snap.arena.buffers, snap.arena.layout_key(), dev)
+    args = distro_stats_inputs(a)
+    err = hold_distro_stats(torch, args)
+    offs = args[5].cpu().numpy().astype(np.int64)
+    counts = np.asarray(snap.arrays["d_task_count"]).astype(np.int64)
+    D = len(counts)
+    longest = int((offs[1:] - offs[:-1]).max())
+    n_ranged = int(offs[-1])
+    t_distro = a["t_distro"].long()
+    dm = a["t_valid"] & a["t_deps_met"]
+    th = args[6][t_distro]
+    over = dm & (a["t_expected_s"] > th)
+    cols = (a["t_valid"].float(), dm.float(), torch.where(dm, a["t_expected_s"], 0.0),
+            over.float(), torch.where(over, a["t_expected_s"], 0.0),
+            (dm & (a["t_wait_dep_met_s"] > th)).float(), (dm & a["t_is_merge"]).float())
+
+    def seven_index_adds():
+        out = torch.zeros((7, D), dtype=torch.float32, device=dev)
+        for k, col in enumerate(cols):
+            out[k].index_add_(0, t_distro, col)
+        return out
+
+    row = dict(
+        name="fused_distro_stats[slab]", route="cuda",
+        source="evergreen_tpu_torch/csrc/distro_stats.cu",
+        replaces="evergreen_tpu/ops/pallas_kernels.py:71", max_abs_err=err,
+        **measure(torch, lambda: fused_distro_stats(*args),
+                  lambda: fused_distro_stats_plain(*args), seven_index_adds),
+        **bounds(bytes_=11 * n_ranged + 4 * (D + 1) + 4 * D + 4 * 7 * D,
+                 ops=9 * n_ranged,
+                 chain_ms=1e3 * longest * FADD_CYCLES / (sm_mhz * 1e6)),
+    )
+    log(f"fused_distro_stats on the slab layout: {int(counts.sum())} live tasks in "
+        f"{n_ranged} ranged rows of {len(a['t_valid'])}, {D} distros, longest range "
+        f"{longest} (the cold layout's would be {int(counts.max())}); bit-equal to "
+        f"plain on the CPU; " + fmt_row(row))
+    c_args = distro_stats_inputs(unpack(cold.arena.buffers, cold.arena.layout_key(), dev))
+    hold_distro_stats(torch, c_args)
+    c_offs = c_args[5].cpu().numpy().astype(np.int64)
+    c_longest = int((c_offs[1:] - c_offs[:-1]).max())
+    check(int(c_offs[-1]) == int(counts.sum()),
+          "the cold build of the slab tick ranges other tasks")
+    times = {"slab": [row["ms"]], "cold": []}
+    for layout in ("cold", "slab", "cold"):
+        a_ = c_args if layout == "cold" else args
+        times[layout].append(device_ms(torch, lambda: fused_distro_stats(*a_)))
+    log(f"fused_distro_stats on the same tick's cold build: {int(c_offs[-1])} ranged "
+        f"rows of {len(c_args[0])}, longest range {c_longest} (chain bound "
+        f"{1e6 * c_longest * FADD_CYCLES / (sm_mhz * 1e6):.3f} us); device time per "
+        f"call, slab / cold alternating: "
+        + ", ".join(f"{layout} {1e3 * t:.2f} us" for layout, t in (
+            ("slab", times["slab"][0]), ("cold", times["cold"][0]),
+            ("slab", times["slab"][1]), ("cold", times["cold"][1]))))
+    return row
+
+
+def service_phase(torch, np, problem, sm_mhz, card="cuda") -> dict:
+    """Phase 8: the service's tick (``TickOptions(use_cache=True)``: the
+    TickCache's warm gather and the resident plane, published on the card
+    through its device mirror) against the CPU's warm tick and the card's
+    cold tick, on three stores. Returns the card stores' launches and
+    the slab-layout kernels-line row. ``card="cpu"`` rehearses it on the
+    CPU (no launches, no kernels-line row)."""
+    import gc
+    import itertools
+    import random
+    import uuid
+
+    from evergreen_tpu_torch.models import distro as distro_mod
+    from evergreen_tpu_torch.models import event as event_mod
+    from evergreen_tpu_torch.ops.distro_stats import fused_distro_stats
+    from evergreen_tpu_torch.ops.segment import segment_sum
+    from evergreen_tpu_torch.scheduler import resident, wrapper
+    from evergreen_tpu_torch.scheduler.persister import persister_state_for
+    from evergreen_tpu_torch.scheduler.snapshot import build_snapshot
+    from evergreen_tpu_torch.storage.store import Store
+    from evergreen_tpu_torch.utils import faults
+    from evergreen_tpu_torch.utils.benchgen import NOW
+    from evergreen_tpu_torch.utils.gctune import tune_gc_for_long_lived_heap
+
+    on_card = torch.device(card).type == "cuda"
+    distros = problem[0]
+    added, removed = distros[-1].id, distros[0].id
+    keys = [k for k, _, _ in SERVICE_STORES]
+    stores = {k: Store() for k in keys}
+    t0 = time.perf_counter()
+    for store in stores.values():
+        seed_tick_store(store, problem, only={d.id for d in distros[:-1]})
+    log(f"service tick: config 3 (seed {SEED}) less {added} in three stores "
+        f"({', '.join(keys)}), {time.perf_counter() - t0:.2f} s wall; each step "
+        f"ticks them in that order")
+    seqs = {k: itertools.count() for k in stores}
+    real_uuid4, real_time = uuid.uuid4, time.time
+    records, undo = service_tick_inputs(resident.ResidentPlane)
+
+    def distro_churn(store, now):
+        tick_churn(store, now)
+        seed_tick_store(store, problem, only={added})
+        distro_mod.coll(store).remove(removed)
+
+    fault = faults.FaultPlan().always("scheduler.solve", faults.Fault("raise"))
+    steps = [
+        ("1 (cold prime)", NOW, None, None),
+        ("2 (after churn)", NOW + TICK_STEP_S, tick_churn, None),
+        ("3 (solve fault)", NOW + 2 * TICK_STEP_S, None, fault),
+        (f"4 (+{added}, -{removed}, churn)", NOW + 3 * TICK_STEP_S, distro_churn, None),
+        ("5 (quiet)", NOW + 4 * TICK_STEP_S, None, None),
+    ]
+    total = {k: {} for k in ("card warm", "card cold")}
+    slab_row = None
+    try:
+        for k, (label, now, before, plan) in enumerate(steps):
+            if before is not None:
+                for store in stores.values():
+                    before(store, now)
+            results, shapes, phases, gcs, launches = {}, {}, {}, {}, {}
+            del records[:]
+            for key, card_store, warm in SERVICE_STORES:
+                store = stores[key]
+                state = persister_state_for(store)
+                shapes0 = [getattr(state, s_) for s_ in SHAPES]
+                phase0 = {p: wrapper.TICK_PHASE_MS.state(phase=p)[1] for p in TICK_PHASES}
+                plane = resident.peek_resident_plane(store)
+                up0 = plane.stats().get("mirror_bytes_uploaded", 0) if plane else 0
+                if k == 0:
+                    gc.collect()
+                gcs[key] = GcClock()
+                gc.callbacks.append(gcs[key])
+                if plan is not None:
+                    faults.install(plan)
+                reset_launches(fused_distro_stats, segment_sum)
+                rng = random.Random(2000 + k)
+                uuid.uuid4 = lambda rng=rng: uuid.UUID(int=rng.getrandbits(128))
+                time.time = lambda now=now: now
+                event_mod._SEQ = seqs[key]
+                try:
+                    results[key] = wrapper.run_tick(
+                        store, wrapper.TickOptions(use_cache=warm), now=now,
+                        device=card if card_store else "cpu")
+                finally:
+                    uuid.uuid4, time.time = real_uuid4, real_time
+                    gc.callbacks.remove(gcs[key])
+                    faults.uninstall()
+                launches[key] = read_launches(fused_distro_stats, segment_sum)
+                shapes[key] = {s_: getattr(state, s_) - v for s_, v in zip(SHAPES, shapes0)}
+                phases[key] = {p: wrapper.TICK_PHASE_MS.state(phase=p)[1] - phase0[p]
+                               for p in TICK_PHASES}
+                if key == "card warm":
+                    plane = resident.peek_resident_plane(store)
+                    uploaded = plane.stats()["mirror_bytes_uploaded"] - up0
+            if k == 0:
+                tune_gc_for_long_lived_heap()
+            r = results["card warm"]
+            solve_tick = plan is None
+            want = ("tpu", "") if solve_tick else ("serial", "solve-failed")
+            for key in keys:
+                c = results[key]
+                check((c.planner_used, c.degraded) == want,
+                      f"tick {label} {key}: planner {c.planner_used!r}, degraded "
+                      f"{c.degraded!r}")
+                for field in ("queues", "new_hosts", "n_tasks", "n_distros", "shed",
+                              "overload"):
+                    check(getattr(c, field) == getattr(r, field),
+                          f"tick {label}: TickResult.{field} of {key} differs")
+                check([h.to_doc() for h in c.intent_hosts]
+                      == [h.to_doc() for h in r.intent_hosts],
+                      f"tick {label}: intent hosts of {key} differ")
+                check(shapes[key] == shapes["card warm"],
+                      f"tick {label}: persister shapes of {key} {shapes[key]} differ "
+                      f"from {shapes['card warm']}")
+            n_docs = 0
+            for name in TICK_COLLECTIONS:
+                want_docs = stores["card warm"].collection(name).find()
+                for key in keys[1:]:
+                    got = stores[key].collection(name).find()
+                    check(len(got) == len(want_docs), f"tick {label}: {name} count "
+                          f"of {key} differs")
+                    for g, w in zip(got, want_docs):
+                        check(g == w, f"tick {label}: {name} document {w.get('_id')!r} "
+                              f"of {key} differs from the card's warm store")
+                n_docs += len(want_docs)
+            cold_l, warm_l = launches["card cold"], launches["card warm"]
+            check(warm_l["fused_distro_stats"] == (1 if solve_tick and on_card else 0)
+                  and warm_l == cold_l and launches["CPU warm"]["segment_sum"] == 0,
+                  f"tick {label}: launches warm {warm_l}, cold {cold_l}")
+            for key in total:
+                for k_, v in launches[key].items():
+                    total[key][k_] = total[key].get(k_, 0) + v
+            planes = {key: resident.peek_resident_plane(stores[key])
+                      for key in ("card warm", "CPU warm")}
+            stats = {key: {s_: v for s_, v in p.stats().items()
+                           if not s_.startswith("mirror")}
+                     for key, p in planes.items()}
+            check(stats["card warm"] == stats["CPU warm"],
+                  f"tick {label}: resident counters card {stats['card warm']} != "
+                  f"CPU {stats['CPU warm']}")
+            check(stats["card warm"]["fallbacks"] == 0, f"tick {label}: resident fallback")
+            check(planes["card warm"].device.type == torch.device(card).type
+                  and planes["CPU warm"].device.type == "cpu",
+                  f"tick {label}: the planes publish on the wrong devices")
+            # the card plane's snapshot of this tick: canonical == a cold
+            # build of the same gather, and the mirror == the host truth
+            mine = [(args, snap) for plane_, args, snap in records
+                    if plane_ is planes["card warm"]]
+            check(len(mine) == 1, f"tick {label}: {len(mine)} card-plane syncs")
+            args, snap = mine[0]
+            t1 = time.perf_counter()
+            cold = build_snapshot(*args[:5], args[5])
+            check(resident.canonicalize(snap) == resident.canonicalize(cold),
+                  f"tick {label}: the card plane's snapshot differs from a cold build")
+            check(mirror_matches_truth(np, snap),
+                  f"tick {label}: the card's mirror differs from the host truth")
+            check_ms = (time.perf_counter() - t1) * 1e3
+            full = sum(b.numel() * b.element_size() for b in snap.arena.buffers.values())
+            if k == 1 and on_card:
+                slab_row = slab_stats_row(torch, np, snap, cold, sm_mhz)
+            log(f"tick {label}: planner {r.planner_used}, degraded {r.degraded!r}; "
+                f"{sum(r.queues.values())} queue items in {len(r.queues)} queues, "
+                f"{len(r.intent_hosts)} intents; persister {shapes['card warm']}; "
+                f"{n_docs} documents equal in all three stores; launches warm "
+                f"{warm_l} == cold; resident {stats['card warm']}; canonical == cold "
+                f"build and mirror == truth ({check_ms:.0f} ms to check)")
+            log(f"tick {label} wall (ms; " + " / ".join(keys) + "): " + "; ".join(
+                f"{p} " + " / ".join(f"{phases[key][p]:.2f}" for key in keys)
+                for p in TICK_PHASES)
+                + "; whole tick " + " / ".join(f"{results[key].total_ms:.2f}" for key in keys)
+                + "; of it in the garbage collector "
+                + " / ".join(f"{gcs[key].ms:.2f}" for key in keys)
+                + " (" + " / ".join(str(gcs[key].full) for key in keys)
+                + " full collections)")
+            log(f"tick {label} mirror: {uploaded} B H2D, a full upload of this "
+                f"arena {full} B ({100.0 * uploaded / full:.1f}%)")
+    finally:
+        undo()
+    return dict(launches=total, slab_row=slab_row)
 
 
 def main() -> int:
@@ -1673,12 +1967,29 @@ def main() -> int:
     check(again == tick_launches, f"tick: launches {again} with the CPU first, "
           f"{tick_launches} with the card first")
 
-    # ---- 8. result --------------------------------------------------------- #
+    # ---- 8. the service's tick -------------------------------------------- #
+    service = service_phase(torch, np, problems["seed0"], sm_mhz)
+
+    # ---- 9. result --------------------------------------------------------- #
+    # launches: phase 7's ticks (card first) and phase 8's card stores,
+    # but fused_distro_stats on the warm card store ran on the slab
+    # layout: those launches are the slab row's alone
+    paths = {"tick": tick_launches, **service["launches"]}
     for r in rows:
-        r["launches"] = tick_launches[r["name"]]
+        r["launches_by_path"] = {
+            p: c[r["name"]] for p, c in paths.items()
+            if not (r["name"] == "fused_distro_stats" and p == "card warm")}
+        r["launches"] = sum(r["launches_by_path"].values())
+    slab = service["slab_row"]
+    slab["floor_ms"] = floor_ms
+    slab["launches_by_path"] = {
+        "card warm": service["launches"]["card warm"]["fused_distro_stats"]}
+    slab["launches"] = slab["launches_by_path"]["card warm"]
+    rows.append(slab)
     # the byte and chain bounds behind bound_ms are in the log lines above
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "floor_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "floor_ms",
+            "launches_by_path")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@ The snapshot builder allocates every input array as a view into one of
 three typed arenas (f32 / i32 / u8-bool), so one solve ships exactly
 three host→device buffers. ``unpack`` carries those buffers, built by
 this package or by the JAX package (``evergreen_tpu/ops/packing.py``, the
-same layout), onto a device as named tensors.
+same layout), onto a device as named tensors. ``ArenaPool`` keeps two
+zeroed buffer sets per layout for the tick's snapshots, as the JAX
+package's does.
 """
 from __future__ import annotations
 
@@ -12,6 +14,16 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from ..utils import metrics as _metrics
+
+ARENA_FORCED_ROTATIONS = _metrics.counter(
+    "arena_forced_rotations_total",
+    "Transfer-arena leases forcibly reclaimed because every slot of a "
+    "layout was still leased (a leak-anomaly signal, not a steady-state "
+    "path).",
+    legacy="arena.pool.forced_rotation",
+)
 
 _DTYPES = {
     "f32": np.float32,
@@ -29,6 +41,8 @@ class Arena:
         self._layout: Dict[str, Tuple[str, int, int]] = {}
         self._sizes = {"f32": 0, "i32": 0, "u8": 0}
         self._finalized = False
+        self._pool: "ArenaPool" = None
+        self._lease: "_ArenaLease" = None
 
     def alloc(self, name: str, size: int, kind: str) -> None:
         assert not self._finalized
@@ -40,10 +54,26 @@ class Arena:
         """Elements of each typed buffer (at least 1)."""
         return {kind: max(total, 1) for kind, total in self._sizes.items()}
 
-    def finalize(self) -> None:
-        for kind, size in self.sizes().items():
-            self._bufs[kind] = np.zeros(size, dtype=_DTYPES[kind])
+    def finalize(self, pool: "ArenaPool" = None) -> None:
+        """Allocate the buffers: fresh zeroed ones, or a zeroed set
+        leased from ``pool`` (returned by ``close``)."""
+        if pool is not None:
+            self._lease = pool.take(self.sizes())
+            self._bufs = self._lease.bufs
+            self._pool = pool
+        else:
+            for kind, size in self.sizes().items():
+                self._bufs[kind] = np.zeros(size, dtype=_DTYPES[kind])
         self._finalized = True
+
+    def close(self) -> None:
+        """Return the leased buffer set to the pool. Idempotent; callers
+        wrap the tick in try/finally so fault paths (a raising solve, a
+        snapshot build that dies mid-fill) can never strand a slot."""
+        if self._pool is not None:
+            self._pool.give_back(self._lease)
+            self._pool = None
+            self._lease = None
 
     def view(self, name: str) -> np.ndarray:
         kind, off, size = self._layout[name]
@@ -60,6 +90,98 @@ class Arena:
     def layout_key(self) -> Tuple:
         """Hashable static layout: ((name, kind, size), ...)."""
         return tuple(self._plan)
+
+
+class _ArenaLease:
+    """One outstanding claim on a pooled buffer set. The lease OBJECT —
+    not the buffer dict — is the return token: after a forced rotation
+    the same dict is live under the thief's newer lease, so dict
+    identity cannot tell the victim's (now void) return from the
+    thief's legitimate one."""
+
+    __slots__ = ("key", "bufs", "revoked")
+
+    def __init__(self, key: Tuple, bufs: Dict[str, np.ndarray]) -> None:
+        self.key = key
+        self.bufs = bufs
+        self.revoked = False
+
+
+class ArenaPool:
+    """Double-buffered arena backing store with explicit leases.
+
+    A tick keeps at most two snapshots alive (the one being packed and
+    the one a solve still reads), so two buffer sets per layout suffice;
+    reusing them costs one memset per buffer instead of a fresh multi-MB
+    allocation. On the CPU the solve reads a numpy buffer in place
+    (``unpack``), so a snapshot published from mutable host state (the
+    resident plane's truth) is copied into a leased set first. ``take``
+    leases a free set and ``Arena.close`` returns it; when no set is free
+    the oldest outstanding lease is forcibly rotated and counted in
+    ``forced_rotations``, so a leak shows in telemetry instead of as a
+    silently overwritten buffer.
+    """
+
+    #: distinct layouts kept before the oldest is dropped
+    MAX_LAYOUTS = 4
+    #: buffer sets per layout (the packing snapshot and the solving one)
+    DEPTH = 2
+
+    def __init__(self) -> None:
+        #: layout key → list of free buffer sets
+        self._free: Dict[Tuple, List[Dict[str, np.ndarray]]] = {}
+        #: layout key → outstanding leases (oldest first)
+        self._leased: Dict[Tuple, List[_ArenaLease]] = {}
+        self.forced_rotations = 0
+
+    def _key_slots(self, key: Tuple):
+        if key not in self._free:
+            while len(self._free) >= self.MAX_LAYOUTS:
+                oldest = next(iter(self._free))
+                del self._free[oldest]
+                self._leased.pop(oldest, None)
+            self._free[key] = []
+            self._leased[key] = []
+        return self._free[key], self._leased[key]
+
+    def take(self, sizes: Dict[str, int]) -> _ArenaLease:
+        key = tuple(sorted(sizes.items()))
+        free, leased = self._key_slots(key)
+        if free:
+            bufs = free.pop()
+            for b in bufs.values():
+                b.fill(0)
+        elif len(leased) < self.DEPTH:
+            bufs = {
+                kind: np.zeros(total, dtype=_DTYPES[kind])
+                for kind, total in sizes.items()
+            }
+        else:
+            # every set is still leased: reclaim the oldest, visibly. The
+            # victim lease is marked revoked so its eventual give_back is
+            # a no-op — the same dict is live again under the new lease.
+            victim = leased.pop(0)
+            victim.revoked = True
+            bufs = victim.bufs
+            self.forced_rotations += 1
+            ARENA_FORCED_ROTATIONS.inc()
+            for b in bufs.values():
+                b.fill(0)
+        lease = _ArenaLease(key, bufs)
+        leased.append(lease)
+        return lease
+
+    def give_back(self, lease: _ArenaLease) -> None:
+        if lease.revoked:
+            return  # forcibly reclaimed: the set is live elsewhere
+        leased = self._leased.get(lease.key)
+        if leased is None:
+            return  # layout was evicted while leased: drop the buffers
+        for i, held in enumerate(leased):
+            if held is lease:
+                del leased[i]
+                self._free[lease.key].append(lease.bufs)
+                return
 
 
 def unpack(bufs: Dict, layout_key: Tuple, device) -> Dict[str, torch.Tensor]:

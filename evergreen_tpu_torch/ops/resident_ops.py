@@ -14,7 +14,10 @@ three buffers resident on the card and ships only the changed spans:
   * a kind whose sparse part covers half of it or more, a change of
     layout, or ``spans=None`` is a full upload.
 
-The host copies here are synchronous: every upload comes from pageable
+An upload that fails on the card raises ``MirrorError``: callers that
+degrade on other failures let it through, like ``KernelError`` — a card
+that cannot take its uploads is a fault to fix, not work to move to the
+host. The host copies here are synchronous: every upload comes from pageable
 memory, so ``copy_`` returns only once the bytes have left the truth
 buffer, and the host may change the truth for the next tick at once.
 The returned buffers feed the packed solve directly (``ops/packing.py::
@@ -32,6 +35,10 @@ from ..device import resolve_device
 #: a merged dirty run at least this long ships as a slice update instead
 #: of joining the index vector
 SLICE_RUN_MIN = 64
+
+
+class MirrorError(RuntimeError):
+    """An upload of the device mirror failed on its device."""
 
 
 def merge_spans(spans: List[Tuple[int, int]]) -> List[Tuple[int, int]]:
@@ -90,6 +97,11 @@ class DeviceMirror:
         self.full_uploads = 0
         self.bytes_uploaded = 0
 
+    def reset(self) -> None:
+        """Drop the resident buffers: the next sync uploads in full."""
+        self._bufs = None
+        self._shapes = {}
+
     def sync(
         self,
         truth: Dict[str, np.ndarray],
@@ -97,8 +109,17 @@ class DeviceMirror:
     ) -> Dict[str, torch.Tensor]:
         """Bring the mirror to ``truth``; ``spans_by_kind`` lists each
         kind's dirty ``[lo, hi)`` spans since the last sync (None: a
-        rebuild, everything is dirty)."""
+        rebuild, everything is dirty). A copy that fails raises
+        ``MirrorError``, and the next sync uploads in full."""
         dev = resolve_device(self.device)
+        try:
+            return self._sync(truth, spans_by_kind, dev)
+        except RuntimeError as exc:
+            self.reset()
+            raise MirrorError(
+                f"device mirror upload to {dev} failed: {exc}") from exc
+
+    def _sync(self, truth, spans_by_kind, dev) -> Dict[str, torch.Tensor]:
         shapes = {k: len(v) for k, v in truth.items()}
         if self._bufs is None or shapes != self._shapes or spans_by_kind is None:
             self._bufs = {k: _upload(v, dev) for k, v in truth.items()}

@@ -263,14 +263,34 @@ def distro_host_counts(a: Dict[str, torch.Tensor]) -> Tuple:
     )
 
 
+def distro_task_offsets(t_valid: torch.Tensor, t_distro: torch.Tensor,
+                        D: int) -> torch.Tensor:
+    """(D+1,) i32 offsets whose range ``[offs[d], offs[d+1])`` holds every
+    valid row of distro d and no valid row of another, on any layout
+    that keeps each distro's rows contiguous and in distro order: the
+    cold build's (distros back to back, then a padding tail with
+    ``t_distro`` D−1) and the resident plane's slabs (holes and headroom
+    inside, an arena tail of ``t_distro`` 0 after the last slab).
+    ``offs[d+1]`` is one past the last valid row of the distros up to d,
+    so on the cold layout the offsets equal ``cumsum(d_task_count)``
+    bit for bit, the padding tails join no range, and an empty distro's
+    range is empty. Invalid rows inside a range add nothing to any
+    statistic. Computed on the device, with no wait on it."""
+    n = t_valid.shape[0]
+    rows = torch.arange(n, dtype=torch.int64, device=t_valid.device)
+    last = torch.full((D,), -1, dtype=torch.int64, device=t_valid.device)
+    last = last.scatter_reduce(
+        0, t_distro.long(), torch.where(t_valid, rows, -1), "amax")
+    hi = torch.cummax(last, 0).values + 1
+    return torch.cat([hi.new_zeros(1), hi]).to(torch.int32)
+
+
 def distro_stats_inputs(a: Dict[str, torch.Tensor]) -> Tuple:
     """The allocator's arguments to ``fused_distro_stats``: the five task
-    columns as packed, each distro's range offsets (cumsum of
-    d_task_count) and its threshold (``distro_thresh``)."""
-    offsets = torch.cat([
-        a["d_task_count"].new_zeros(1),
-        torch.cumsum(a["d_task_count"], 0).to(torch.int32),
-    ])
+    columns as packed, each distro's range offsets
+    (``distro_task_offsets``) and its threshold (``distro_thresh``)."""
+    offsets = distro_task_offsets(
+        a["t_valid"], a["t_distro"], a["d_valid"].shape[0])
     return (
         a["t_valid"], a["t_deps_met"], a["t_expected_s"],
         a["t_wait_dep_met_s"], a["t_is_merge"], offsets, distro_thresh(a),

@@ -28,8 +28,8 @@ the fleet manifest (``shm`` + ``shm_bytes``), unlinked on a clean worker
 exit and reaped from dead pids by ``reap_orphan_segments``.
 
 Not ported yet: the zero-copy publish through an arena pool
-(``SolverClient.arena_backing``), which needs a snapshot build that
-allocates from a pool; the process-wide metrics registry (the
+(``SolverClient.arena_backing``), which needs the pool's ``backing``
+provider (``ops/packing.py::ArenaPool`` has none yet); the process-wide metrics registry (the
 per-instance counters ``fallbacks``, ``round_outcomes`` and
 ``stale_accepted`` are kept); and the supervisor hook of the fleet
 runtime, which serving stops for when the supervisor crashed.

@@ -56,6 +56,7 @@ the fleet-wide caps hold exactly even though the solve is per-shard.
 from __future__ import annotations
 
 import time as _time
+import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -117,7 +118,7 @@ class CapacityPlane:
     """Per-store capacity solver wrapper (see module docstring)."""
 
     def __init__(self, store: Store) -> None:
-        self.store = store
+        self._store_ref = weakref.ref(store)  # weak, as the TickCache's
         self.breaker = CircuitBreaker(
             "scheduler.capacity",
             failure_threshold=CAPACITY_BREAKER_THRESHOLD,
@@ -131,6 +132,10 @@ class CapacityPlane:
             failure_threshold=CAPACITY_BREAKER_THRESHOLD,
             cooldown_s=CAPACITY_BREAKER_COOLDOWN_S,
         )
+
+    @property
+    def store(self) -> Store:
+        return self._store_ref()
 
     # -- eligibility --------------------------------------------------------- #
 
@@ -665,16 +670,14 @@ def build_fused_inputs(fused: Dict):
     )
 
 
-#: per-store planes (same lifetime pattern as the solve breakers)
-_planes: Dict[int, tuple] = {}
+#: per-store planes (keyed weakly, like the solve breakers)
+_planes: "weakref.WeakKeyDictionary[Store, CapacityPlane]" = weakref.WeakKeyDictionary()
 _planes_lock = _lockcheck.make_lock("scheduler.capacity_planes")
 
 
 def capacity_plane_for(store: Store) -> CapacityPlane:
-    key = id(store)
     with _planes_lock:
-        entry = _planes.get(key)
-        if entry is None or entry[0] is not store:
-            entry = (store, CapacityPlane(store))
-            _planes[key] = entry
-        return entry[1]
+        plane = _planes.get(store)
+        if plane is None:
+            plane = _planes[store] = CapacityPlane(store)
+        return plane

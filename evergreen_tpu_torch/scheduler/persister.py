@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import operator as _operator
 import time as _time
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -176,20 +177,18 @@ class PersisterState:
         return True
 
 
-#: per-store PersisterState singletons (same id-keyed pattern as the
+#: per-store PersisterState singletons (keyed weakly, like the
 #: scheduler's snapshot memos in wrapper.py)
-_states: Dict[int, tuple] = {}
+_states: "weakref.WeakKeyDictionary[Store, PersisterState]" = weakref.WeakKeyDictionary()
 _states_lock = _lockcheck.make_lock("persister.states")
 
 
 def persister_state_for(store: Store) -> PersisterState:
-    key = id(store)
     with _states_lock:
-        entry = _states.get(key)
-        if entry is None or entry[0] is not store:
-            entry = (store, PersisterState())
-            _states[key] = entry
-        return entry[1]
+        state = _states.get(store)
+        if state is None:
+            state = _states[store] = PersisterState()
+        return state
 
 
 def fingerprint_version(
@@ -201,10 +200,10 @@ def fingerprint_version(
     shape bumps it and a skip leaves it, so an unchanged token
     certifies an unchanged document."""
     with _states_lock:
-        entry = _states.get(id(store))
-    if entry is None or entry[0] is not store:
+        state = _states.get(store)
+    if state is None:
         return None
-    fp = entry[1]._fps.get((distro_id, secondary))
+    fp = state._fps.get((distro_id, secondary))
     return fp.v if fp is not None and fp.v >= 0 else None
 
 
@@ -238,6 +237,7 @@ def persist_task_queue(
     secondary: bool = False,
     now: Optional[float] = None,
     state: Optional[PersisterState] = None,
+    stamp_hint=None,
 ) -> int:
     """Persist the plan; returns the number of queue items written.
 
@@ -260,6 +260,9 @@ def persist_task_queue(
                         and changed rows are written as a delta
       * full rewrite  — no usable fingerprint (or the delta would exceed
                         half the doc): the classic whole-doc upsert
+
+    ``stamp_hint`` (the TickCache's per-distro unstamped id set) lets the
+    mark-scheduled candidate scan collapse to the handful of fresh tasks.
     """
     now = _time.time() if now is None else now
     n_full = len(plan)
@@ -389,13 +392,32 @@ def persist_task_queue(
 
     # Candidate pre-filter on the materialized Task attributes: in steady
     # state every planned task is already stamped, so the per-task store
-    # get() round (50k/tick at config-3 scale) collapses to zero. The scan
-    # is skipped whenever plan instances AND the deps-met column are
-    # unchanged (the two inputs it reads), reusing last tick's candidates.
-    # mark_scheduled re-checks live docs before mutating, so a stale
-    # candidate is harmless.
+    # get() round (50k/tick at config-3 scale) collapses to zero. The
+    # TickCache's ``stamp_hint`` set short-circuits even the scan; with
+    # no hint, the scan is skipped whenever plan instances AND the
+    # deps-met column are unchanged (the two inputs it reads), reusing
+    # last tick's candidates. mark_scheduled re-checks live docs before
+    # mutating, so a stale candidate is harmless.
     fp = state._fps.get(key) if state is not None else fp
-    if fp is not None and same_met and fp.cand is not None:
+    if stamp_hint is not None and cut >= n_full and not stamp_hint:
+        cand = []
+    elif (
+        stamp_hint is not None and fp is not None
+        and fp.row_index is not None
+    ):
+        # scan ONLY the hinted ids: met rides in the fingerprint's
+        # id-sorted column, membership in row_index doubles as the
+        # post-cut plan filter, and mark_scheduled re-checks live docs
+        # so over-inclusion is harmless (sorted for a deterministic
+        # write order)
+        idx, met_col = fp.row_index, fp.met
+        cand = [
+            (tid, bool(met_col[i]))
+            for tid in sorted(stamp_hint)
+            for i in (idx.get(tid),)
+            if i is not None
+        ]
+    elif fp is not None and same_met and fp.cand is not None:
         cand = fp.cand
     else:
         met_list = met_plan.tolist()

@@ -1,7 +1,7 @@
 """Snapshot builder: domain documents → the packed solve's arena buffers.
 
 Counterpart of ``evergreen_tpu/scheduler/snapshot.py`` without its
-membership memo, arena pool and native packer: one host-side pass that fills
+native packer: one host-side pass that fills
 
   * task feature arrays [N]   (priority, requester flags, durations, …)
   * unit-membership edges [M] (task → planner unit)
@@ -12,10 +12,15 @@ membership memo, arena pool and native packer: one host-side pass that fills
 as views into three typed arenas (``ops/packing.py``). For the same
 problem the buffers are byte-identical to the JAX package's, so both
 packages solve the very same input (``tests/test_torch_layout.py``).
+A long-lived caller passes the membership memo and the arena pool that
+``scheduler/wrapper.py::_snapshot_memos_for`` keeps per store; the
+resident state plane (``scheduler/resident.py``) reuses this module's
+pieces for its slabs.
 """
 from __future__ import annotations
 
 import dataclasses
+import operator as _operator
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -200,28 +205,34 @@ class Snapshot:
         )
 
 
-def deps_met_for(tasks, coll) -> Dict[str, bool]:
+def deps_met_for(tasks, coll, in_snapshot=None) -> Dict[str, bool]:
     """Fetch the finished parents' statuses from the tasks collection
-    ``coll`` and compute the deps-met mask over ``tasks``."""
+    ``coll`` and compute the deps-met mask over ``tasks`` — the one block
+    shared by the cold gather and the TickCache's incremental
+    maintenance, so warm/cold parity cannot drift."""
     parent_ids = {d.task_id for t in tasks for d in t.depends_on}
     finished = {
         doc["_id"]: doc["status"]
         for doc in coll.find_ids(list(parent_ids))
         if doc["status"] in TASK_COMPLETED_STATUSES
     }
-    return compute_deps_met(tasks, finished)
+    return compute_deps_met(tasks, finished, in_snapshot=in_snapshot)
 
 
 def compute_deps_met(
     tasks: List[Task],
     finished_status: Dict[str, str],
+    in_snapshot=None,
 ) -> Dict[str, bool]:
     """Dependency-met mask over the snapshot's tasks: a dependency is met
     iff its parent is finished with the required status. Parents inside
     the snapshot are unfinished by construction, so only out-of-snapshot
     parents (``finished_status``: task id → final status) can satisfy
-    an edge."""
-    in_snapshot = {t.id for t in tasks}
+    an edge. ``in_snapshot`` overrides the membership set when the caller
+    computes flags for a SUBSET of tasks whose parents may live elsewhere
+    in the full snapshot (the TickCache's incremental maintenance)."""
+    if in_snapshot is None:
+        in_snapshot = {t.id for t in tasks}
     met: Dict[str, bool] = {}
     for t in tasks:
         if t.override_dependencies or not t.depends_on:
@@ -302,10 +313,12 @@ def layout_for_dims(dims: Dict[str, int]) -> Arena:
     return arena
 
 
-def arena_for_dims(dims: Dict[str, int]) -> Arena:
-    """A zeroed snapshot arena for bucket sizes ``dims``."""
+def arena_for_dims(dims: Dict[str, int], pool=None) -> Arena:
+    """A zeroed snapshot arena for bucket sizes ``dims``; ``pool`` (an
+    ``ops.packing.ArenaPool``) leases one of its rotating buffer sets
+    instead of allocating."""
     arena = layout_for_dims(dims)
-    arena.finalize()
+    arena.finalize(pool)
     return arena
 
 
@@ -427,6 +440,31 @@ def _pack_static(tasks: List[Task]) -> Dict[str, np.ndarray]:
     return cols
 
 
+def _memb_equivalent(old_tasks: List[Task], tasks: List[Task]) -> bool:
+    """Soft membership-memo hit: two task lists form identical planner
+    units/segments iff every membership-relevant field matches pairwise —
+    id, task group string inputs (group/variant/project/version), group
+    max-hosts, and the dependency edges. A task re-materialized because
+    only its time stamps changed then reuses the cached memberships; its
+    static columns are still repacked (stamps feed t_start)."""
+    if len(old_tasks) != len(tasks):
+        return False
+    for a, b in zip(old_tasks, tasks):
+        if a is b:
+            continue
+        if (
+            a.id != b.id
+            or a.task_group != b.task_group
+            or a.version != b.version
+            or a.build_variant != b.build_variant
+            or a.project != b.project
+            or a.task_group_max_hosts != b.task_group_max_hosts
+            or a.depends_on != b.depends_on
+        ):
+            return False
+    return True
+
+
 def build_snapshot(
     distros: List[Distro],
     tasks_by_distro: Dict[str, List[Task]],
@@ -436,6 +474,8 @@ def build_snapshot(
     now: float,
     force_dims: Dict[str, int] = None,
     dims_memo: Dict[str, int] = None,
+    memb_memo: Dict[str, tuple] = None,
+    arena_pool=None,
 ) -> Snapshot:
     """Pack one scheduling problem into a fresh arena.
 
@@ -447,7 +487,14 @@ def build_snapshot(
     ``dims_memo`` (caller-owned, kept across ticks) adds hysteresis: a
     dimension keeps its previous bucket while the live count still fits
     and the bucket is at most 4x the natural one, so a count oscillating
-    across a bucket edge does not change the layout every few ticks."""
+    across a bucket edge does not change the layout every few ticks.
+
+    ``memb_memo`` (caller-owned, kept across ticks) caches each distro's
+    unit memberships, segments and static columns keyed on the identity
+    of its task instances (or, on a soft hit, on their membership
+    fields), stored base-relative and rebased with one vectorized add,
+    so a warm build stays byte-identical to a cold one. ``arena_pool``
+    leases the arena's buffers (``Snapshot.arena.close`` returns them)."""
     n_d = len(distros)
 
     # ---- flatten tasks + build planner unit memberships ------------------- #
@@ -467,25 +514,90 @@ def build_snapshot(
     seg_names: List[Tuple[int, str]] = [(di, "") for di in range(n_d)]
     seg_max_hosts_l: List[int] = [0] * n_d
     named_base = n_d
+    _is = _operator.is_
     for di, d in enumerate(distros):
         tasks = tasks_by_distro.get(d.id, [])
         base = len(flat_tasks)
-        n_units_d, mt_arr, mu_arr, snames, smax = build_memberships(
-            d, tasks, base, unit_base, di, named_base,
-            t_seg_np[base:base + len(tasks)], deps_met,
-            t_dm_np[base:base + len(tasks)],
+        gv = bool(d.planner_settings.group_versions)
+        seg_slice = t_seg_np[base:base + len(tasks)]
+        dm_slice = t_dm_np[base:base + len(tasks)]
+        entry = memb_memo.get(d.id) if memb_memo is not None else None
+        hard_hit = (
+            entry is not None
+            and entry[0] == gv
+            and (
+                entry[1] is tasks  # the TickCache reuses list objects
+                or (
+                    len(entry[1]) == len(tasks)
+                    and all(map(_is, entry[1], tasks))
+                )
+            )
         )
+        soft_hit = (
+            not hard_hit
+            and entry is not None
+            and entry[0] == gv
+            and _memb_equivalent(entry[1], tasks)
+        )
+        if hard_hit or soft_hit:
+            (_, _, n_units_d, mt_local, mu_local, snames, smax, seg_local,
+             scols) = entry
+            if soft_hit:
+                scols = _pack_static(tasks)
+                memb_memo[d.id] = (gv, tasks, n_units_d, mt_local, mu_local,
+                                   snames, smax, seg_local, scols)
+            # rebase the cached local ids into this build's coordinates
+            mt_arr = mt_local + np.int32(base)
+            mu_arr = mu_local + np.int32(unit_base)
+            if len(tasks):
+                np.copyto(
+                    seg_slice,
+                    np.where(seg_local < 0, np.int32(di),
+                             seg_local + np.int32(named_base)),
+                )
+                if deps_met is not None:
+                    dm_slice[:] = np.fromiter(
+                        (deps_met.get(t.id, True) for t in tasks),
+                        np.uint8, len(tasks),
+                    )
+                else:
+                    dm_slice[:] = 1
+        else:
+            n_units_d, mt_arr, mu_arr, snames, smax = build_memberships(
+                d, tasks, base, unit_base, di, named_base, seg_slice,
+                deps_met, dm_slice,
+            )
+            scols = _pack_static(tasks)
+            if memb_memo is not None:
+                # stored base-relative: grouped segments as local
+                # ordinals, ungrouped (== di) as -1
+                seg_local = np.where(
+                    seg_slice >= n_d, seg_slice - np.int32(named_base),
+                    np.int32(-1),
+                ) if len(tasks) else seg_slice.copy()
+                memb_memo[d.id] = (
+                    gv, tasks, n_units_d, mt_arr - np.int32(base),
+                    mu_arr - np.int32(unit_base), snames, smax, seg_local,
+                    scols,
+                )
         seg_names.extend((di, nm) for nm in snames)
         seg_max_hosts_l.extend(smax)
         named_base += len(snames)
         if len(tasks):
-            static_jobs.append((base, len(tasks), _pack_static(tasks)))
+            static_jobs.append((base, len(tasks), scols))
         flat_tasks.extend(tasks)
         t_counts.append(len(tasks))
         u_counts.append(n_units_d)
         m_task_parts.append(mt_arr)
         m_unit_parts.append(mu_arr)
         unit_base += n_units_d
+
+    if memb_memo is not None and len(memb_memo) > n_d:
+        # evict distros that left the set: a deleted distro must not pin
+        # its task list for the service's lifetime
+        live = {d.id for d in distros}
+        for k in [k for k in memb_memo if k not in live]:
+            del memb_memo[k]
 
     m_task = (
         np.concatenate(m_task_parts) if m_task_parts
@@ -555,7 +667,7 @@ def build_snapshot(
         dims_memo.update(dims)
     N, U, G, D = dims["N"], dims["U"], dims["G"], dims["D"]
 
-    arena = arena_for_dims(dims)
+    arena = arena_for_dims(dims, arena_pool)
     a: Dict[str, np.ndarray] = {}
     for name, kind in FIELD_KINDS.items():
         v = arena.view(name)
@@ -662,8 +774,8 @@ def build_snapshot(
 
     # distro settings matrix
     fill("d_valid", [True] * n_d)
-    # contiguous distro-major range lengths: fused_distro_stats derives
-    # each distro's [start, end) from their cumulative sum
+    # live task counts per distro (on this contiguous layout also each
+    # distro's range length: ops/solve.py::distro_task_offsets)
     fill("d_task_count", t_counts)
     pack_distro_settings(a, distros)
 

@@ -16,16 +16,21 @@ or has its breaker open degrades the tick to the serial oracle
 (``KernelError``) is not degraded: it raises out of the tick.
 
 ``run_tick`` runs the solve and the capacity program on the card and
-raises without one unless the caller passes ``device="cpu"``. It always
-plans solver distros with the batched solve, unschedules stale
-underwater tasks and caps in-flight intents at
-``MAX_INTENT_HOSTS_IN_FLIGHT``: the JAX options ``planner_version``,
-``underwater_unschedule`` and ``max_intent_hosts`` are left out. Left out,
-with the JAX package's TickCache, resident state plane, sharded plane
-and durable store: ``TickOptions.use_cache``, ``use_resident``,
-``solve_fn``, ``force_dims``, ``intent_budget``,
+raises without one unless the caller passes ``device="cpu"``. With
+``TickOptions.use_cache`` it gathers from the per-store TickCache
+(``scheduler/cache.py``) and packs through the resident state plane
+(``scheduler/resident.py``), whose snapshot on the card is the device
+mirror's resident buffers; a mirror upload that fails raises out of the
+tick like ``KernelError``. It always plans solver distros with the
+batched solve, unschedules stale underwater tasks and caps in-flight
+intents at ``MAX_INTENT_HOSTS_IN_FLIGHT``: the JAX options
+``planner_version``, ``underwater_unschedule``, ``max_intent_hosts`` and
+``use_resident`` (on whenever ``use_cache`` is) are left out. Left out,
+with the JAX package's sharded plane and durable store:
+``TickOptions.solve_fn``, ``force_dims``, ``intent_budget``,
 ``capacity_quota_scale`` and ``async_persist``; the fenced and
-WAL-commit branches; the tracing spans and ``TickResult.trace_id``.
+WAL-commit branches (and with them ``_invalidate_resident``); the
+tracing spans and ``TickResult.trace_id``.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ import functools
 import math
 import threading
 import time as _time
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -55,6 +61,8 @@ from ..models.distro import Distro
 from ..models.host import Host, new_intent
 from ..models.task import Task
 from ..models.task_queue import DistroQueueInfo, QueueInfoView
+from ..ops.packing import ArenaPool
+from ..ops.resident_ops import MirrorError
 from ..ops.solve import run_solve_packed
 from ..settings import ReleaseModeConfig, ServiceFlags
 from ..storage.store import Store
@@ -65,9 +73,11 @@ from ..utils import overload as overload_mod
 from ..utils.circuit import CircuitBreaker
 from ..utils.log import get_logger
 from . import cmp_prioritizer, serial
+from .cache import TickCache
 from .capacity_plane import capacity_plane_for, extract_fused_view
 from .persister import persist_task_queue, persister_state_for
 from .provenance import TickProvenance, build_provenance
+from .resident import resident_plane_for
 from .serial import RunningTaskEstimate
 from .snapshot import Snapshot, build_snapshot, deps_met_for, pack_capacity_page
 
@@ -101,7 +111,41 @@ INTENT_BUDGET_CLAMPED = _metrics.counter(
     "but the cap rejected.",
 )
 
-_breakers_lock = _lockcheck.make_lock("sched.tick_caches")
+#: the warm gather's task list for a distro with no runnable work: one
+#: stable object, so the snapshot membership memo and the resident plane
+#: see identity across ticks (nothing in the tick path mutates task lists)
+_EMPTY_TASKS: List[Task] = []
+
+_tick_caches_lock = _lockcheck.make_lock("sched.tick_caches")
+
+#: per-store TickCache singletons. Every per-store registry of the tick
+#: is keyed weakly and its values refer to the store only weakly, so a
+#: store's caches, arenas and card buffers go when the store goes.
+_tick_caches: "weakref.WeakKeyDictionary[Store, TickCache]" = (
+    weakref.WeakKeyDictionary())
+
+
+def tick_cache_for(store: Store) -> TickCache:
+    """Per-store TickCache singleton (the long-lived service uses one so
+    each tick only re-materializes changed tasks)."""
+    with _tick_caches_lock:
+        cache = _tick_caches.get(store)
+        if cache is None:
+            cache = _tick_caches[store] = TickCache(store)
+        return cache
+
+
+#: per-store snapshot memos (shape hysteresis, membership cache, arena
+#: pool) — the scheduler's own cross-tick state
+_sched_memos: "weakref.WeakKeyDictionary[Store, tuple]" = weakref.WeakKeyDictionary()
+
+
+def _snapshot_memos_for(store: Store) -> Tuple[dict, dict, ArenaPool]:
+    with _tick_caches_lock:
+        memos = _sched_memos.get(store)
+        if memos is None:
+            memos = _sched_memos[store] = ({}, {}, ArenaPool())
+        return memos
 
 
 #: consecutive solve failures before the breaker opens, and how long it
@@ -111,37 +155,21 @@ SOLVE_BREAKER_THRESHOLD = 3
 SOLVE_BREAKER_COOLDOWN_S = 60.0
 
 #: per-store circuit breakers around the packed device solve
-_solve_breakers: Dict[int, tuple] = {}
-#: per-store snapshot dims memos (the bucket hysteresis across ticks)
-_dims_memos: Dict[int, tuple] = {}
+_solve_breakers: "weakref.WeakKeyDictionary[Store, CircuitBreaker]" = (
+    weakref.WeakKeyDictionary())
 
 
 def solve_breaker_for(store: Store):
     """Per-store breaker guarding the device-solve path of run_tick."""
-    key = id(store)
-    with _breakers_lock:
-        entry = _solve_breakers.get(key)
-        if entry is None or entry[0] is not store:
-            entry = (
-                store,
-                CircuitBreaker(
-                    "scheduler.solve",
-                    failure_threshold=SOLVE_BREAKER_THRESHOLD,
-                    cooldown_s=SOLVE_BREAKER_COOLDOWN_S,
-                ),
+    with _tick_caches_lock:
+        breaker = _solve_breakers.get(store)
+        if breaker is None:
+            breaker = _solve_breakers[store] = CircuitBreaker(
+                "scheduler.solve",
+                failure_threshold=SOLVE_BREAKER_THRESHOLD,
+                cooldown_s=SOLVE_BREAKER_COOLDOWN_S,
             )
-            _solve_breakers[key] = entry
-        return entry[1]
-
-
-def _dims_memo_for(store: Store) -> Dict[str, int]:
-    key = id(store)
-    with _breakers_lock:
-        entry = _dims_memos.get(key)
-        if entry is None or entry[0] is not store:
-            entry = (store, {})
-            _dims_memos[key] = entry
-        return entry[1]
+        return breaker
 
 
 @dataclasses.dataclass
@@ -155,6 +183,12 @@ class TickOptions:
     #: whole-tick budget: when exceeded, optional work is shed — stats
     #: first, then event emission — but never planning (0 = unlimited)
     tick_budget_s: float = 0.0
+    #: incremental runnable-set maintenance between ticks
+    #: (scheduler/cache.py), packed through the resident state plane
+    #: (scheduler/resident.py): the snapshot columns stay persistent
+    #: buffers across ticks and take the cache's deltas in place; a
+    #: host-side delta failure falls back to the full rebuild path
+    use_cache: bool = False
 
 
 @dataclasses.dataclass
@@ -192,6 +226,9 @@ def gather_tick_inputs(
     runnable_tasks: Optional[List[Task]] = None,
     active_hosts: Optional[List[Host]] = None,
     deps_met: Optional[Dict[str, bool]] = None,
+    by_distro: Optional[Dict[str, List[Task]]] = None,
+    alias_by_distro: Optional[Dict[str, List[Task]]] = None,
+    distro_view: Optional[Tuple[List[Distro], set]] = None,
 ) -> Tuple[
     List[Distro],
     Dict[str, List[Task]],
@@ -205,33 +242,54 @@ def gather_tick_inputs(
     ``runnable_tasks`` / ``active_hosts`` / ``deps_met`` let a caller
     supply warm sets (already in store order); when absent, the finders
     scan the collections (scheduler/task_finder.go:34-36 analog) — never
-    the full task history. The JAX function's TickCache views
-    (``by_distro``, ``alias_by_distro``, ``distro_view``) come with the
-    TickCache.
+    the full task history.
+
+    ``by_distro``/``alias_by_distro`` are the TickCache's maintained
+    per-distro views (store order, unchanged distros keep identical list
+    objects): assembly then costs O(distros) and ``deps_met`` is passed
+    through as-is — the cache maintains it key-for-key with the runnable
+    set. ``distro_view`` is the cache's (distro list, planning id set).
     """
     # The snapshot covers the allocator's distro set (a superset that
     # includes disabled distros, which still maintain minimum hosts); task
     # queues are only gathered for the plannable subset (reference
-    # model/distro/db.go:198-224).
-    distros = distro_mod.find_needs_hosts_planning(store)
-    distro_ids = {d.id for d in distro_mod.find_needs_planning(store)}
+    # model/distro/db.go:198-224). The cached view is copied because alias
+    # rows are appended below.
+    if distro_view is not None:
+        distros = list(distro_view[0])
+        distro_ids = distro_view[1]
+    else:
+        distros = distro_mod.find_needs_hosts_planning(store)
+        distro_ids = {d.id for d in distro_mod.find_needs_planning(store)}
     all_ids = {d.id for d in distros}
 
-    if runnable_tasks is None:
-        runnable_tasks = task_mod.find_host_runnable(store)
+    if by_distro is not None:
+        tasks_by_distro = {
+            d.id: by_distro.get(d.id, _EMPTY_TASKS)
+            if d.id in distro_ids else _EMPTY_TASKS
+            for d in distros
+        }
+        alias_tasks = {
+            did: tasks
+            for did, tasks in (alias_by_distro or {}).items()
+            if did in distro_ids and tasks
+        }
+    else:
+        if runnable_tasks is None:
+            runnable_tasks = task_mod.find_host_runnable(store)
 
-    tasks_by_distro = {d.id: [] for d in distros}
-    alias_tasks = {}
-    runnable: List[Task] = []
-    for t in runnable_tasks:
-        if t.distro_id in distro_ids:
-            tasks_by_distro[t.distro_id].append(t)
-            runnable.append(t)
-        for sd in t.secondary_distros:
-            if sd in distro_ids and sd != t.distro_id:
-                alias_tasks.setdefault(sd, []).append(t)
-                if t.distro_id not in distro_ids:
-                    runnable.append(t)
+        tasks_by_distro = {d.id: [] for d in distros}
+        alias_tasks = {}
+        runnable: List[Task] = []
+        for t in runnable_tasks:
+            if t.distro_id in distro_ids:
+                tasks_by_distro[t.distro_id].append(t)
+                runnable.append(t)
+            for sd in t.secondary_distros:
+                if sd in distro_ids and sd != t.distro_id:
+                    alias_tasks.setdefault(sd, []).append(t)
+                    if t.distro_id not in distro_ids:
+                        runnable.append(t)
 
     # Secondary (alias) queues plan as extra rows of the SAME batched solve
     # (the reference runs a separate alias-scheduler job per distro,
@@ -244,9 +302,13 @@ def gather_tick_inputs(
 
     # Resolve dependency parents + running-task estimates from raw docs
     # (materializing Task objects here is hot-loop cost). A supplied
-    # deps-met map is restricted to this gather's runnable set.
+    # deps-met map is restricted to this gather's runnable set, except the
+    # TickCache's, which is passed through.
     coll = task_mod.coll(store)
-    if deps_met is None:
+    if by_distro is not None:
+        if deps_met is None:
+            raise ValueError("by_distro gather requires the cache deps map")
+    elif deps_met is None:
         deps_met = deps_met_for(runnable, coll)
     else:
         # fail CLOSED on a missing flag: a maintenance gap must show up
@@ -465,8 +527,9 @@ def _run_tick_body(
         store, "", now, UNDERWATER_UNSCHEDULE_THRESHOLD_S
     )
 
-    # the cold gather: the finders' runnable tasks and active hosts
-    # become this tick's solver inputs
+    # delta drain: the TickCache's maintained views (or the cold
+    # finders) become this tick's solver inputs
+    tick_cache = tick_cache_for(store) if opts.use_cache else None
     t_gather = _time.perf_counter()
     (
         distros,
@@ -474,7 +537,8 @@ def _run_tick_body(
         hosts_by_distro,
         running_estimates,
         deps_met,
-    ) = gather_tick_inputs(store, now)
+    ) = (tick_cache.gather(now) if tick_cache is not None
+         else gather_tick_inputs(store, now))
     TICK_PHASE_MS.observe(
         (_time.perf_counter() - t_gather) * 1e3, phase="delta_drain"
     )
@@ -556,8 +620,10 @@ def _run_tick_body(
             "degraded-tick", reason=degraded, fallback="serial"
         )
     if want_tpu:
+        snapshot = None
         try:
             t1 = _time.perf_counter()
+            dims_memo, memb_memo, arena_pool = _snapshot_memos_for(store)
             # the fused capacity page: pool economics + budget/knobs as
             # packed columns, so the capacity program runs INSIDE this
             # tick's one solve (None keeps the device block a no-op)
@@ -566,12 +632,25 @@ def _run_tick_body(
                 capacity_page = capacity_plane_for(store).build_capacity_page(
                     intent_budget=budget,
                 )
-            snapshot = build_snapshot(
-                solver_distros, tasks_by_distro, hosts_by_distro,
-                running_estimates, deps_met, now,
-                dims_memo=_dims_memo_for(store),
-            )
-            pack_capacity_page(snapshot.arrays, capacity_page)
+            if tick_cache is not None:
+                # resident state plane: persistent columns mutated by the
+                # cache's deltas; a host-side delta failure returns None
+                # and the full rebuild below serves the tick
+                snapshot = resident_plane_for(store, dev).sync(
+                    tick_cache, solver_distros, tasks_by_distro,
+                    hosts_by_distro, running_estimates, deps_met, now,
+                    arena_pool=arena_pool, capacity_page=capacity_page,
+                )
+            if snapshot is None:
+                snapshot = build_snapshot(
+                    solver_distros, tasks_by_distro, hosts_by_distro,
+                    running_estimates, deps_met, now,
+                    dims_memo=dims_memo, memb_memo=memb_memo,
+                    arena_pool=arena_pool,
+                )
+                # page columns are packed post-build (and re-zeroed when
+                # absent: pool-leased arenas can carry an earlier page)
+                pack_capacity_page(snapshot.arrays, capacity_page)
             t2 = _time.perf_counter()
             out = _solve_bounded(
                 store, snapshot, opts.solve_deadline_s,
@@ -588,6 +667,9 @@ def _run_tick_body(
                 (_time.perf_counter() - t3) * 1e3, phase="unpack"
             )
             pstate.note_solve_infos(*info_epoch)
+            # copy the two capacity settings columns out while the arena
+            # views are still this tick's (the lease returns in the
+            # finally below; the next tick may re-zero the buffers)
             _dpool = np.asarray(snapshot.arrays["d_pool"])
             _dcap = np.asarray(snapshot.arrays["d_cap_on"])
             capacity_cols = {
@@ -598,9 +680,9 @@ def _run_tick_body(
                 fused_view = extract_fused_view(snapshot, out)
             planner_used = "tpu"
             breaker.record_success(now=now)
-        except KernelError:
-            # the card cannot run its kernels: a fault to fix, not work
-            # to move to the host
+        except (KernelError, MirrorError):
+            # the card cannot run its kernels or take its uploads: a
+            # fault to fix, not work to move to the host
             raise
         except Exception as exc:  # noqa: BLE001 — ANY other solve-path
             # failure degrades the tick; it must never kill it
@@ -623,6 +705,11 @@ def _run_tick_body(
             provenance = None
             capacity_cols = None
             fused_view = None
+        finally:
+            # return the pool-leased arena even when the solve raised (a
+            # failed solve must not strand the slot)
+            if snapshot is not None and snapshot.arena is not None:
+                snapshot.arena.close()
     if not want_tpu and solver_distros:
         results = serial.serial_tick(
             solver_distros, tasks_by_distro, hosts_by_distro,
@@ -742,6 +829,13 @@ def _run_tick_body(
                 secondary=is_alias,
                 now=now,
                 state=pstate,
+                # the cache's per-distro unstamped set collapses the
+                # candidate scan to the handful of fresh tasks (alias
+                # plans hold other distros' tasks — those scan)
+                stamp_hint=(
+                    tick_cache.stamp_candidates(d.id)
+                    if tick_cache is not None and not is_alias else None
+                ),
             )
         except Exception as exc:  # noqa: BLE001 — isolate per distro
             queues[d.id] = 0

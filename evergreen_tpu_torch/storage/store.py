@@ -7,8 +7,11 @@ reads the same documents in the same order from either package's store.
 without copying them (``snapshot`` is the deep-copying read); an upsert
 of an existing id keeps its place. The delta persister's write shapes
 (``bulk_update``, ``patch``, ``patch_list``, ``splice_queue``) apply
-their changes as the JAX store's do. The durable store's hooks (the
-write journal, change listeners, the tick-scoped commit and fencing
+their changes as the JAX store's do. Every write path notifies the
+collection's change listeners (``add_listener``) inside the collection
+lock, at the same points as the JAX store; the TickCache
+(``scheduler/cache.py``) tracks its dirty sets through them. The durable
+store's hooks (the write journal, the tick-scoped commit and fencing
 calls, ``apply_wal_record``) wait for a durable store: on the in-memory
 store they do nothing.
 
@@ -31,12 +34,24 @@ class Collection:
         self.name = name
         self._docs: Dict[str, dict] = {}
         self._lock = _lockcheck.make_rlock("store.collection")
+        #: change listeners: fn(doc_id) called after any write touching the
+        #: doc. Callbacks MUST be trivial (set a dirty flag) — they run
+        #: under the collection lock.
+        self._listeners: List[Callable[[str], None]] = []
         #: memoized id → monotonic insertion rank, maintained incrementally:
         #: consumers only SORT by it, so ranks need monotonicity, not
         #: contiguity — inserts append the next counter value and removals
         #: just drop the key (relative order of survivors is unchanged).
         self._key_order_cache: Optional[Dict[str, int]] = None
         self._order_rank = 0
+
+    def add_listener(self, fn: Callable[[str], None]) -> None:
+        with self._lock:
+            self._listeners.append(fn)
+
+    def _notify(self, doc_id: str) -> None:
+        for fn in self._listeners:
+            fn(doc_id)
 
     # -- basic CRUD --------------------------------------------------------- #
 
@@ -49,6 +64,7 @@ class Collection:
             if self._key_order_cache is not None:
                 self._key_order_cache[doc_id] = self._order_rank
             self._order_rank += 1
+            self._notify(doc_id)
 
     def upsert(self, doc: dict) -> None:
         with self._lock:
@@ -57,6 +73,7 @@ class Collection:
                     self._key_order_cache[doc["_id"]] = self._order_rank
                 self._order_rank += 1
             self._docs[doc["_id"]] = doc
+            self._notify(doc["_id"])
 
     def insert_many(self, docs: Iterable[dict]) -> None:
         docs = list(docs)  # may be a generator; two passes below
@@ -71,6 +88,8 @@ class Collection:
                 if self._key_order_cache is not None:
                     self._key_order_cache[doc["_id"]] = self._order_rank
                 self._order_rank += 1
+            for doc in docs:
+                self._notify(doc["_id"])
 
     def get(self, doc_id: str) -> Optional[dict]:
         with self._lock:
@@ -102,8 +121,10 @@ class Collection:
     def remove(self, doc_id: str) -> bool:
         with self._lock:
             gone = self._docs.pop(doc_id, None) is not None
-            if gone and self._key_order_cache is not None:
-                self._key_order_cache.pop(doc_id, None)
+            if gone:
+                if self._key_order_cache is not None:
+                    self._key_order_cache.pop(doc_id, None)
+                self._notify(doc_id)
             return gone
 
     def remove_where(self, pred: Callable[[dict], bool]) -> int:
@@ -113,13 +134,17 @@ class Collection:
                 del self._docs[i]
                 if self._key_order_cache is not None:
                     self._key_order_cache.pop(i, None)
+                self._notify(i)
             return len(doomed)
 
     def clear(self) -> None:
         with self._lock:
+            ids = list(self._docs)
             self._docs.clear()
             self._key_order_cache = None
             self._order_rank = 0
+            for i in ids:
+                self._notify(i)
 
     def count(self, pred: Optional[Callable[[dict], bool]] = None) -> int:
         with self._lock:
@@ -155,6 +180,7 @@ class Collection:
                 if doc.get(key) != val:
                     return False
             doc.update(update)
+            self._notify(doc_id)
             return True
 
     def update(self, doc_id: str, update: Dict[str, Any]) -> bool:
@@ -163,6 +189,7 @@ class Collection:
             if doc is None:
                 return False
             doc.update(update)
+            self._notify(doc_id)
             return True
 
     def update_where(
@@ -174,6 +201,7 @@ class Collection:
                 if pred(doc):
                     doc.update(update)
                     n += 1
+                    self._notify(doc["_id"])
             return n
 
     def bulk_update(
@@ -187,14 +215,16 @@ class Collection:
         in one lock acquisition — the tick's task stamping. Returns the
         number of docs updated."""
         with self._lock:
-            n = 0
+            hit: List[str] = []
             for doc_id in ids:
                 doc = self._docs.get(doc_id)
                 if doc is None or (only_if is not None and not only_if(doc)):
                     continue
                 doc.update(fields)
-                n += 1
-            return n
+                hit.append(doc_id)
+            for doc_id in hit:
+                self._notify(doc_id)
+            return len(hit)
 
     def patch(self, doc_id: str, fields: Dict[str, Any]) -> bool:
         """Field-level doc update — the delta persister's column patch
@@ -205,6 +235,7 @@ class Collection:
             if doc is None:
                 return False
             doc.update(fields)
+            self._notify(doc_id)
             return True
 
     def patch_list(
@@ -231,6 +262,7 @@ class Collection:
                     lst[i] = v
             if fields:
                 doc.update(fields)
+            self._notify(doc_id)
             return True
 
     def splice_queue(
@@ -278,6 +310,7 @@ class Collection:
                         lst[i] = v
             if fields:
                 doc.update(fields)
+            self._notify(doc_id)
             return True
 
     def mutate(self, doc_id: str, fn: Callable[[dict], None]) -> bool:
@@ -287,6 +320,7 @@ class Collection:
             if doc is None:
                 return False
             fn(doc)
+            self._notify(doc_id)
             return True
 
     def snapshot(self) -> List[dict]:

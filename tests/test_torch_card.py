@@ -405,6 +405,81 @@ def test_card_tick_raises_a_failed_launch(kernel, cuda_device, monkeypatch):
     assert store.collection("task_queues").find() == []
 
 
+def _tick_store(distros, tbd, hbd):
+    from evergreen_tpu_torch.models import distro as distro_mod
+    from evergreen_tpu_torch.models import host as host_mod
+    from evergreen_tpu_torch.models import task as task_mod
+    from evergreen_tpu_torch.storage.store import Store
+
+    store = Store()
+    for d in distros:
+        distro_mod.insert(store, d)
+    task_mod.insert_many(store, [t for ts in tbd.values() for t in ts])
+    for hs in hbd.values():
+        host_mod.insert_many(store, hs)
+    return store
+
+
+@pytest.mark.cuda
+def test_card_warm_ticks_write_the_cpu_documents(cuda_device):
+    """The service's tick (``use_cache=True``: the TickCache and the
+    resident plane, published through the device mirror) on the card and
+    on the CPU, three ticks with churn between them: the same queue and
+    task documents and results, each solve launching one
+    ``fused_distro_stats`` on the slab layout, no resident fallback, and
+    the card plane's snapshot buffers on the card."""
+    from evergreen_tpu_torch.scheduler import resident, wrapper
+
+    problem = generate_problem(12, 2_000, seed=6, task_group_fraction=0.3,
+                               dep_fraction=0.3)
+    stores = {"cuda": _tick_store(*problem[:3]), "cpu": _tick_store(*problem[:3])}
+    opts = wrapper.TickOptions(use_cache=True, create_intent_hosts=False)
+    for k, now in enumerate((NOW, NOW + 15, NOW + 30)):
+        results = {}
+        for key, store in stores.items():
+            if k:
+                tasks = store.collection("tasks")
+                for doc in tasks.find()[k::23]:
+                    tasks.update(doc["_id"], {"status": "success"})
+            before = fused_distro_stats.launches
+            results[key] = wrapper.run_tick(store, opts, now=now,
+                                            device=None if key == "cuda" else "cpu")
+            if key == "cuda":
+                assert fused_distro_stats.launches - before == 1
+        assert results["cuda"].queues == results["cpu"].queues
+        assert results["cuda"].planner_used == "tpu" and results["cuda"].degraded == ""
+        for name in ("task_queues", "tasks"):
+            assert stores["cuda"].collection(name).find() == (
+                stores["cpu"].collection(name).find()), name
+    planes = {k: resident.peek_resident_plane(s) for k, s in stores.items()}
+    assert planes["cuda"].device.type == "cuda" and planes["cpu"].device.type == "cpu"
+    stats = {k: {n: v for n, v in p.stats().items() if not n.startswith("mirror")}
+             for k, p in planes.items()}
+    assert stats["cuda"] == stats["cpu"] and stats["cuda"]["fallbacks"] == 0
+    assert planes["cuda"].stats()["mirror_full_uploads"] >= 1
+
+
+@pytest.mark.cuda
+def test_card_warm_tick_raises_a_failed_mirror_upload(cuda_device, monkeypatch):
+    """A mirror upload that fails on the card raises ``MirrorError`` out
+    of the warm ``run_tick``: no serial tick, no host rebuild, no solve
+    breaker failure, no queue written."""
+    from evergreen_tpu_torch.ops import resident_ops
+    from evergreen_tpu_torch.scheduler import wrapper
+
+    distros, tbd, hbd, _, _ = generate_problem(4, 200, seed=2)
+    store = _tick_store(distros, tbd, hbd)
+
+    def broken(buf, dev):
+        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+    monkeypatch.setattr(resident_ops, "_upload", broken)
+    with pytest.raises(resident_ops.MirrorError, match="illegal memory access"):
+        wrapper.run_tick(store, wrapper.TickOptions(use_cache=True), now=NOW)
+    assert wrapper.solve_breaker_for(store)._consecutive_failures == 0
+    assert store.collection("task_queues").find() == []
+
+
 def test_entry_points_need_a_card_unless_cpu(tmp_path):
     """``SolverService``, ``StackedSolveCache``, ``DeviceMirror.sync``
     and ``SolverClient``'s local fallback run on the card by default and

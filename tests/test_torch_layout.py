@@ -317,8 +317,8 @@ def test_tick_constants_match_the_jax_package():
             assert (t_i.kind, t_i.name, t_i.labelnames) == (
                 j_i.kind, j_i.name, j_i.labelnames), name
     # the port's options and result are the JAX ones less the fields of
-    # the parts it has not ported (TickCache, resident and sharded
-    # planes, durable store, tracing), with the same defaults
+    # the parts it has not ported (sharded plane, durable store,
+    # tracing), with the same defaults
     for t_cls, j_cls in ((t_wrapper.TickOptions, j_wrapper.TickOptions),
                          (t_wrapper.TickResult, j_wrapper.TickResult)):
         j_fields = {f.name: f for f in dataclasses.fields(j_cls)}
@@ -330,14 +330,15 @@ def test_tick_constants_match_the_jax_package():
                 and f.default_factory() == j_f.default_factory()), f.name
     assert {f.name for f in dataclasses.fields(j_wrapper.TickOptions)} - {
         f.name for f in dataclasses.fields(t_wrapper.TickOptions)} == {
-        "use_cache", "use_resident", "solve_fn", "force_dims",
-        "intent_budget", "capacity_quota_scale", "async_persist",
-        "planner_version", "underwater_unschedule", "max_intent_hosts"}
+        "use_resident", "solve_fn", "force_dims", "intent_budget",
+        "capacity_quota_scale", "async_persist", "planner_version",
+        "underwater_unschedule", "max_intent_hosts"}
     assert {f.name for f in dataclasses.fields(j_wrapper.TickResult)} - {
         f.name for f in dataclasses.fields(t_wrapper.TickResult)} == {"trace_id"}
     # what the port's tick fixes in place of those options
     assert j_wrapper.TickOptions().planner_version == t_globals.PlannerVersion.TPU.value
     assert j_wrapper.TickOptions().underwater_unschedule is True
+    assert j_wrapper.TickOptions().use_resident is True  # use_cache ⇒ the plane
     assert j_wrapper.TickOptions().max_intent_hosts == t_globals.MAX_INTENT_HOSTS_IN_FLIGHT
     for name in ("MAX_TASK_PRIORITY", "COMMIT_QUEUE_PRIORITY_BOOST",
                  "UNDERWATER_UNSCHEDULE_THRESHOLD_S", "GITHUB_MERGE_REQUESTER",
@@ -346,6 +347,58 @@ def test_tick_constants_match_the_jax_package():
     for requester in [r.value for r in j_globals.Requester] + ["", "other"]:
         assert t_globals.is_mainline_requester(requester) == (
             j_globals.is_mainline_requester(requester)), requester
+
+
+def test_resident_constants_match_the_jax_package():
+    """The resident plane's breaker settings, slab capacity and arena dim
+    rounding, the arena pool's depth and layout bound, and the metrics
+    of the cache, plane and pool, as in the JAX package."""
+    from evergreen_tpu.ops import packing as j_packing
+    from evergreen_tpu.scheduler import resident as j_resident
+
+    from evergreen_tpu_torch.ops import packing as t_packing
+    from evergreen_tpu_torch.scheduler import resident as t_resident
+
+    for name in ("DELTA_BREAKER_THRESHOLD", "DELTA_BREAKER_COOLDOWN_S",
+                 "_WEEK_S"):
+        assert getattr(t_resident, name) == getattr(j_resident, name), name
+    for n in list(range(0, 300)) + [511, 512, 513, 4_000, 57_344, 250_001]:
+        for minimum in (8, 16):
+            assert t_resident._cap(n, minimum) == j_resident._cap(n, minimum)
+        for prev in (0, 512, 1024, 4096, 60_416):
+            assert (t_resident._fine_bucket(n, prev)
+                    == j_resident._fine_bucket(n, prev)), (n, prev)
+    assert t_resident._Slab.__slots__ == j_resident._Slab.__slots__
+    assert t_packing.ArenaPool.MAX_LAYOUTS == j_packing.ArenaPool.MAX_LAYOUTS
+    assert t_packing.ArenaPool.DEPTH == j_packing.ArenaPool().depth
+    assert t_packing._ArenaLease.__slots__ == j_packing._ArenaLease.__slots__
+    for t_i, j_i in ((t_resident.RESIDENT_EVENTS, j_resident.RESIDENT_EVENTS),
+                     (t_packing.ARENA_FORCED_ROTATIONS,
+                      j_packing.ARENA_FORCED_ROTATIONS)):
+        assert (t_i.kind, t_i.name, t_i.labelnames) == (
+            j_i.kind, j_i.name, j_i.labelnames)
+
+
+def test_no_port_source_line_imports_jax():
+    """No line of the port's sources or of chip_smoke.py imports JAX or
+    the JAX package (the import check below runs the modules; this one
+    reads every line, functions' bodies included)."""
+    import os
+    import re
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|evergreen_tpu)\b")
+    files = [os.path.join(repo, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(repo, "evergreen_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    bad = []
+    for path in files:
+        with open(path) as f:
+            for k, line in enumerate(f, 1):
+                if pattern.match(line):
+                    bad.append(f"{os.path.relpath(path, repo)}:{k}: {line.strip()}")
+    assert len(files) > 50
+    assert not bad, bad
 
 
 def _copied_dataclasses():

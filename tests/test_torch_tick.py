@@ -2,8 +2,10 @@
 
 The same store is seeded into each package (the same documents, inserted
 in the same order), then each package's ``run_tick`` runs the same
-sequence of ticks and churn: the JAX package's with ``use_cache=False``
-on JAX's CPU backend, the port's with ``device="cpu"``. Intent ids and
+sequence of ticks and churn: the JAX package's on JAX's CPU backend, the
+port's with ``device="cpu"``; both cold (``use_cache=False``) unless a
+test asks for the service's warm tick (``use_cache=True``: the TickCache
+and the resident state plane). Intent ids and
 secrets come from ``uuid.uuid4``, intent creation times and the overload
 ladder's shed records from ``time.time``, and event ids from each
 package's process-wide sequence; the ``world`` fixture makes all three
@@ -75,7 +77,8 @@ class Side:
     def tick(self, now, **opts):
         if self.name == "jax":
             return self.wrapper.run_tick(
-                self.store, self.wrapper.TickOptions(use_cache=False, **opts),
+                self.store,
+                self.wrapper.TickOptions(**{"use_cache": False, **opts}),
                 now=now)
         return self.wrapper.run_tick(
             self.store, self.wrapper.TickOptions(**opts), now=now, device="cpu")
@@ -483,3 +486,211 @@ def test_run_tick_needs_a_card_unless_cpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_wrapper.run_tick(store, now=NOW)
     assert store.collection("task_queues").find() == []
+
+
+# --------------------------------------------------------------------------- #
+# the service's tick: TickCache + resident state plane
+# --------------------------------------------------------------------------- #
+
+WARM = {"use_cache": True}
+
+
+def held_out(docs, did):
+    """Split distro ``did`` (its document, tasks and hosts) out of
+    ``docs``; returns the held-out part."""
+    extra = {}
+    for coll, key in (("distros", "_id"), ("tasks", "distro_id"),
+                      ("hosts", "distro_id")):
+        extra[coll] = [d for d in docs[coll] if d[key] == did]
+        docs[coll] = [d for d in docs[coll] if d[key] != did]
+    return extra
+
+
+def service_script(extra, gone, opts):
+    """Tick, churn, tick, a tick with a ``scheduler.solve`` fault (the
+    serial oracle plans it; the cache's resident deltas accumulate
+    across it), a churn that adds one distro and removes another, tick,
+    and a quiet tick (the clock only)."""
+
+    def fault(store):
+        for f in (j_faults, t_faults):
+            f.install(f.FaultPlan().always("scheduler.solve", f.Fault("raise")))
+
+    def distros(store):
+        j_faults.uninstall()
+        t_faults.uninstall()
+        churn(11)(store)
+        for coll, ds in extra.items():
+            store.collection(coll).insert_many(copy.deepcopy(ds))
+        store.collection("distros").remove(gone)
+
+    return [(NOW, None, opts), (NOW + 15, churn(7), opts),
+            (NOW + 30, fault, opts), (NOW + 45, distros, opts),
+            (NOW + 60, None, opts)]
+
+
+@pytest.mark.parametrize("name", ["gen3+cap", "random8"])
+def test_warm_ticks_match_jax_and_the_cold_tick(name, world):
+    """``run_tick(use_cache=True)`` on the CPU writes JAX
+    ``run_tick(use_cache=True)``'s documents exactly (resident plane on
+    in both) over the service's sequence, and the same documents as the
+    port's own cold tick."""
+    docs = (generated(3, capacity=True) if name.startswith("gen")
+            else random_docs(8))
+    ids = [d["_id"] for d in docs["distros"]]
+    extra = held_out(docs, ids[-1])
+    try:
+        j, t = run_both(world, docs, service_script(extra, ids[0], WARM))
+        _, port_cold = sides(docs)
+        world()
+        cold = [record(port_cold, now, before, **opts) for now, before, opts
+                in service_script(extra, ids[0], {})]
+    finally:
+        j_faults.uninstall()
+        t_faults.uninstall()
+    assert_same(j, t)
+    assert [x["result"]["planner_used"] for x in t] == [
+        "tpu", "tpu", "serial", "tpu", "tpu"]
+    assert [x["result"]["degraded"] for x in t] == [
+        "", "", "solve-failed", "", ""]
+    for k, (w, c) in enumerate(zip(t, cold)):
+        assert w["result"] == c["result"], k
+        for coll in COLLECTIONS:
+            assert w["docs"][coll] == c["docs"][coll], (k, coll)
+    # the churn tick persists as deltas, as the cold one does
+    assert t[1]["shapes"]["rewritten"] == 0
+
+
+def test_warm_tick_plane_and_cache_state_match_jax(world):
+    """After the service's sequence the two packages' resident planes
+    have the same counters, and the port's caches hand the persister
+    the same stamp hints as JAX's."""
+    from evergreen_tpu.scheduler import resident as j_resident
+    from evergreen_tpu_torch.scheduler import resident as t_resident
+
+    docs = generated(2, capacity=True)
+    ids = [d["_id"] for d in docs["distros"]]
+    extra = held_out(docs, ids[-1])
+    script = service_script(extra, ids[0], WARM)
+    stats = {}
+    try:
+        for side in sides(docs):
+            world()
+            for now, before, opts in script:
+                record(side, now, before, **opts)
+            plane = (j_resident if side.name == "jax"
+                     else t_resident).peek_resident_plane(side.store)
+            cache = side.wrapper.tick_cache_for(side.store)
+            stats[side.name] = (
+                {k: v for k, v in plane.stats().items()
+                 if not k.startswith("mirror")},
+                {d: cache.stamp_candidates(d) for d in ids})
+    finally:
+        j_faults.uninstall()
+        t_faults.uninstall()
+    assert stats["port"] == stats["jax"]
+    counters = stats["port"][0]
+    assert counters["fallbacks"] == 0
+    assert counters["rebuilds"] + counters["topology_splices"] <= 3
+    assert counters["delta_rows"] > 0
+
+
+def test_warm_tick_raises_a_failed_mirror_upload(monkeypatch, world):
+    """A mirror upload that fails raises ``MirrorError`` out of the warm
+    tick — no serial tick, no host rebuild: the solve breaker records no
+    failure and no queue is written. The plane here publishes through a
+    ``DeviceMirror`` on the CPU; on the card that is the default. Once
+    the upload works again the next tick rebuilds the plane and runs."""
+    from evergreen_tpu_torch.ops import resident_ops
+    from evergreen_tpu_torch.scheduler import resident as t_resident
+
+    docs = generated(3, capacity=True)
+    _, side = sides(docs)
+    mirror = resident_ops.DeviceMirror(device="cpu")
+    plane = t_resident.ResidentPlane(side.store, mirror=mirror)
+    monkeypatch.setitem(t_resident._planes, side.store, plane)
+    assert t_resident.resident_plane_for(side.store, "cpu") is plane
+
+    def broken(buf, dev):
+        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+    world()
+    upload = resident_ops._upload
+    monkeypatch.setattr(resident_ops, "_upload", broken)
+    with pytest.raises(resident_ops.MirrorError, match="illegal memory access"):
+        side.tick(NOW, **WARM)
+    breaker = t_wrapper.solve_breaker_for(side.store)
+    assert breaker.state == "closed" and breaker._consecutive_failures == 0
+    assert side.store.collection("task_queues").find() == []
+    assert plane.fallbacks == 0
+    monkeypatch.setattr(resident_ops, "_upload", upload)
+    res = side.tick(NOW + 15, **WARM)
+    assert res.planner_used == "tpu" and res.degraded == ""
+    assert plane.rebuild_reasons == {"cold": 1, "mirror-error": 1}
+    assert mirror.full_uploads == 1
+
+
+def test_warm_tick_raises_a_kernel_error(monkeypatch, world):
+    """A kernel that fails to build or launch raises out of the warm tick
+    as out of the cold one, with the resident plane serving the solve."""
+    from evergreen_tpu_torch.ops import _build, solve
+
+    def broken(*args, **kwargs):
+        raise _build.KernelError("CUDA launch failed with cudaError_t 98")
+
+    _, side = sides(generated(3, capacity=True))
+    world()
+    monkeypatch.setattr(solve, "fused_distro_stats", broken)
+    with pytest.raises(_build.KernelError, match="cudaError_t 98"):
+        side.tick(NOW, **WARM)
+    assert t_wrapper.solve_breaker_for(side.store)._consecutive_failures == 0
+    assert side.store.collection("task_queues").find() == []
+
+
+def test_a_ticked_store_is_released(world):
+    """The tick's per-store state (TickCache, snapshot memos and arena
+    pool, resident plane, capacity plane, solve breaker, persister
+    state) is keyed weakly: once the caller drops a store that warm and
+    cold ticks ran on, nothing of the port keeps it or that state."""
+    import gc
+    import weakref
+
+    from evergreen_tpu_torch.scheduler import capacity_plane as t_capacity
+    from evergreen_tpu_torch.scheduler import resident as t_resident
+
+    _, side = sides(generated(3, capacity=True))
+    world()
+    for k, opts in enumerate((WARM, WARM, {})):
+        assert side.tick(NOW + 15 * k, **opts).planner_used == "tpu"
+    registries = (t_wrapper._tick_caches, t_wrapper._sched_memos,
+                  t_wrapper._solve_breakers, t_resident._planes,
+                  t_capacity._planes, t_persister._states)
+    assert all(side.store in r for r in registries)
+    plane = weakref.ref(t_resident.peek_resident_plane(side.store))
+    store = weakref.ref(side.store)
+    del side
+    gc.collect()
+    assert store() is None and plane() is None
+
+
+def test_gc_tuning_matches_jax():
+    """``tune_gc_for_long_lived_heap`` freezes the heap and sets the
+    collector's thresholds as the JAX package's does (the interpreter's
+    state is restored afterwards)."""
+    import gc
+
+    from evergreen_tpu.utils import gctune as j_gctune
+    from evergreen_tpu_torch.utils import gctune as t_gctune
+
+    threshold = gc.get_threshold()
+    seen = {}
+    try:
+        for name, mod in (("jax", j_gctune), ("port", t_gctune)):
+            gc.unfreeze()
+            gc.set_threshold(*threshold)
+            mod.tune_gc_for_long_lived_heap()
+            seen[name] = (gc.get_threshold(), gc.get_freeze_count() > 0)
+    finally:
+        gc.unfreeze()
+        gc.set_threshold(*threshold)
+    assert seen["port"] == seen["jax"] == ((50_000, 25, 25), True)
