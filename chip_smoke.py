@@ -76,8 +76,8 @@ raises and exits non-zero):
    (``time.time``) and event ids are made the same for both stores;
    then the wall time of each phase of the two solve ticks, and the
    garbage collector's share of it. Each tick follows a full
-   ``gc.collect()``, and the phase runs twice on fresh stores: the
-   card's store ticked first at each step, then the CPU's;
+   ``gc.collect()``, and the phase runs again on fresh stores with the
+   CPU's store ticked first at each step, its two solve ticks only;
 8. the service's tick (``TickOptions(use_cache=True)``): config 3 in
    three stores (warm on the card, warm on the CPU, cold on the card),
    five ticks with churn, a solve fault and a distro-set change, every
@@ -87,11 +87,12 @@ raises and exits non-zero):
    ``stacked="always"`` (every block of a round in one stacked solve),
    (b) on the card with ``stacked="auto"`` (local on one card: each
    shard ticks through its own resident plane and mirror), (c) on the
-   CPU with ``stacked="never"`` — for seven rounds (prime, churn, quiet,
-   shard 0 held at YELLOW so one affinity group migrates, after the
-   handoff, quiet, and a quiet round whose card planes tick under
-   torch.profiler: device busy time, idle share and the host's time in
-   CUDA synchronisation). After each round every shard store's
+   CPU with ``stacked="never"`` — for five rounds (prime, churn, quiet,
+   shard 0 held at YELLOW so one affinity group migrates, and the round
+   after the handoff, whose card planes tick under torch.profiler:
+   device busy time, idle share and the host's time in CUDA
+   synchronisation; two quiet rounds before the profiled one were cut
+   to make room for phase 10). After each round every shard store's
    documents are equal across the planes (intent and event ids
    canonicalised: which shard's tick draws which id depends on thread
    order), no document has two owners, the migrations are equal, plane
@@ -102,9 +103,35 @@ raises and exits non-zero):
    intents, a fresh plane (a)'s merged queues equal a single store's
    card tick, and a failed launch inside its stacked solve raises out of
    ``tick()`` with no local solve;
-10. a JSON line of the kernels (launches: phases 7–9, by path; the other
-   phases check theirs on lines of their own), the card's line, and the
-   last line ``{"ok": true, "device": {...}}``.
+10. the service's tick as ``units/crons.py`` runs it
+   (``TickOptions(use_cache=True, async_persist=True,
+   solve_deadline_s=10.0, tick_budget_s=12.0)``) on durable stores
+   (``durable_phase``): config 3 less ``d199`` in (a) a ``DurableStore``
+   on the card under a renewing ``FileLease``, (b) the same on the CPU,
+   (c) the in-memory card store of phase 8; ticks prime, churn, quiet,
+   after each every document equal across the three, one WAL group
+   frame a tick in (a) and (b) with equal records; then (a)'s and (b)'s
+   directories copied without closing (a crash) and replayed, a churn
+   tick on (a)'s copy on the card (a cold plane, a full mirror upload),
+   on (b)'s on the CPU and on (a), (b), (c): a replayed store's fresh
+   persister rewrites the queue documents a live one skips, so the two
+   copies are held equal with every field and WAL record, and to the
+   live stores without the queue documents' write stamps; a copy whose
+   WAL is cut inside tick 4's frame reopens to (a) before tick 4; a
+   thief takes (a)'s lease, (a)'s tick is ``"fenced"`` (no launch, no
+   WAL byte, no document changed, the plane dropped), and the thief's
+   store ticks on the card beside a thief on a copy of (b)'s directory
+   on the CPU (held alike) and (b) and (c), then checkpoints; then a
+   durable fleet (``ShardedScheduler.build(4, data_dir=...,
+   stacked="always")`` on the card, its modes held as plane (a)'s)
+   against an in-memory CPU plane, four rounds (a handoff in the
+   third), two crash copies reopened by ``open_fleet`` on the card and
+   the CPU, and a fifth round, documents equal; prints every tick's
+   phases with ``wal_commit``, the frame writes, the barrier waits, WAL
+   bytes, replay, checkpoint and ``open_fleet`` ms;
+11. a JSON line of the kernels (launches: phases 7–10, by path; the
+   other phases check theirs on lines of their own), the card's line,
+   and the last line ``{"ok": true, "device": {...}}``.
 
 Before phase 1 the backend probe (``utils/torchenv.py``) must find the
 card from a fresh interpreter.
@@ -1240,10 +1267,10 @@ class GcClock:
             self._t0 = None
 
 
-def tick_phase(torch, np, problem, card="cuda", card_first=True) -> dict:
+def tick_phase(torch, np, problem, card="cuda", card_first=True, depth=None) -> dict:
     """Phase 7, ticking the card's store before the CPU's at each step
-    when ``card_first``, else after it. Returns the launches of its
-    ticks on ``card``."""
+    when ``card_first``, else after it; ``depth`` runs only the first
+    that many ticks. Returns the launches of its ticks on ``card``."""
     import gc
     import itertools
     import random
@@ -1300,7 +1327,7 @@ def tick_phase(torch, np, problem, card="cuda", card_first=True) -> dict:
          None, "serial", "breaker-open"),
     ]
     total = {}
-    for k, (label, now, before, plan, planner, degraded) in enumerate(steps):
+    for k, (label, now, before, plan, planner, degraded) in enumerate(steps[:depth]):
         if before is not None:
             for store in stores.values():
                 before(store, now)
@@ -1676,15 +1703,13 @@ PLANE_SHARDS = 4
 PLANES = (("a", "cuda", "always"), ("b", "cuda", "auto"), ("c", "cpu", "never"))
 PLANE_COLLECTIONS = ("distros",) + TICK_COLLECTIONS + ("shard_handoffs",)
 PLANE_ROUNDS = ("1 (prime)", "2 (after churn)", "3 (quiet)",
-                "4 (shard 0 YELLOW)", "5 (after the handoff)", "6 (quiet)",
-                "7 (quiet, profiled)")
+                "4 (shard 0 YELLOW)", "5 (after the handoff, profiled)")
 YELLOW_ROUND = 3
-PROFILED_ROUND = 6
+PROFILED_ROUND = 4
 #: plane (a)'s modes: round 1 measures the shards' common dims (local);
 #: round 2 stacks, or is local only where round 1's intents grew some
 #: shard's dims past that floor ("grown"); every later round stacks
-PLANE_A_MODES = ("local", "stacked or grown", "stacked", "stacked", "stacked",
-                 "stacked", "stacked")
+PLANE_A_MODES = ("local", "stacked or grown", "stacked", "stacked", "stacked")
 
 
 def canon_doc(doc):
@@ -1775,15 +1800,16 @@ def grown_past_floor(floor, keys) -> bool:
             and any(k[i] > floor[n] for k in keys for i, n in enumerate(names)))
 
 
-def check_plane_a_mode(r, label, mode, drift) -> None:
-    """Hold plane (a)'s mode in round ``r`` to ``PLANE_A_MODES``."""
-    want = PLANE_A_MODES[r]
+def check_plane_a_mode(r, label, mode, drift, modes=PLANE_A_MODES) -> None:
+    """Hold a stacking card plane's mode in round ``r`` to ``modes``
+    (phase 9's plane (a): ``PLANE_A_MODES``; phase 10's durable fleet:
+    ``FLEET_MODES``)."""
+    want = modes[r]
     if want == "stacked or grown" and drift:
         ok = mode == "local" and all(grown_past_floor(f, k) for f, k in drift)
     else:
         ok = mode == want.split()[0] and (not drift or want == "local")
-    check(ok, f"round {label}: plane (a) {mode}, expected {want} (stacked solve "
-          f"drift {drift})")
+    check(ok, f"round {label}: {mode}, expected {want} (stacked solve drift {drift})")
 
 
 def profiled_tick(torch, plane, now) -> tuple:
@@ -2006,6 +2032,639 @@ def sharded_phase(torch, np, problem, card="cuda") -> dict:
     return total
 
 
+#: phase 10: the service's tick as ``units/crons.py`` runs it, on durable
+#: stores. The stores (name, on the card, durable), ticked in this order
+#: at each step: (a) durable on the card, (b) durable on the CPU, (c) the
+#: in-memory card store of phase 8, the control
+DURABLE_STORES = (("a", True, True), ("b", False, True), ("c", True, False))
+#: the writer leases' TTL, and where the data directories live (inside
+#: the checkout, gitignored, removed at the end of the phase)
+LEASE_TTL_S = 2.0
+DATA_ROOT = os.path.join(HERE, "_smoke_data")
+#: the fleet's rounds (shard 0 held YELLOW in the third)
+FLEET_ROUNDS = ("1 (prime)", "2 (after churn)", "3 (shard 0 YELLOW)", "4 (quiet)")
+FLEET_YELLOW = 2
+#: the durable card fleet's modes, held as phase 9 holds plane (a)'s; the
+#: fifth round is the reopened fleet's first, local (its dims floor cold)
+FLEET_MODES = ("local", "stacked or grown", "stacked", "stacked", "local")
+
+
+def service_opts(wrapper):
+    """``units/crons.py``'s tick options, its sharded round's too."""
+    return wrapper.TickOptions(use_cache=True, async_persist=True,
+                               solve_deadline_s=10.0, tick_budget_s=12.0)
+
+
+def wal_path(store) -> str:
+    return store._journal.path
+
+
+def wal_lines(path, start=0) -> list:
+    """The WAL's terminated lines from byte ``start`` on."""
+    with open(path, "rb") as fh:
+        fh.seek(start)
+        return [line for line in fh.read().split(b"\n") if line]
+
+
+def canon_record(rec: dict) -> dict:
+    """A WAL record without its commit time and stamp (the flusher writes
+    a frame whenever its thread runs), documents as ``canon_doc``."""
+    rec = {k: v for k, v in rec.items() if k not in ("ts", "k")}
+    if "rs" in rec:
+        rec["rs"] = [canon_record(r) for r in rec["rs"]]
+    if "d" in rec:
+        rec["d"] = canon_doc(rec["d"])
+    if "ds" in rec:
+        rec["ds"] = [canon_doc(d) for d in rec["ds"]]
+    return rec
+
+
+#: the fields a queue document's write stamps (``generated_at``, the
+#: version ``v``): a store whose persister is fresh (reopened after a
+#: crash, or a new lease holder's) rewrites every queue document once,
+#: where a live store skips the unchanged ones
+QUEUE_STAMPS = ("generated_at", "v")
+
+
+def store_json(store, names=None, stamps=True) -> str:
+    """Every collection (or ``names``) of ``store`` as canonical JSON: a
+    recovered store holds the JSON of the live one (a queue row is a
+    tuple in memory and a list after replay). ``stamps=False`` leaves
+    out the queue documents' ``QUEUE_STAMPS``."""
+    if names is None:  # every collection that holds a document
+        names = [n for n in sorted(store._collections) if len(store.collection(n))]
+
+    def docs(n):
+        found = store.collection(n).find()
+        if stamps or n not in ("task_queues", "task_secondary_queues"):
+            return found
+        return [{k: v for k, v in d.items() if k not in QUEUE_STAMPS} for d in found]
+
+    return json.dumps({n: docs(n) for n in names},
+                      sort_keys=True, separators=(",", ":"), default=str)
+
+
+def timed_method(store, name) -> list:
+    """Wrap ``store``'s method ``name`` (``sync_persist``: the tick's
+    persist barrier; ``commit_group_inline``: a frame's write on the
+    flusher thread); returns the list each call appends its wall ms to."""
+    real = getattr(store, name)
+    ms = []
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        try:
+            return real(*args)
+        finally:
+            ms.append((time.perf_counter() - t0) * 1e3)
+
+    setattr(store, name, timed)
+    return ms
+
+
+def wait_flushed(store) -> float:
+    """Wait until ``store``'s flusher is idle without taking its deferred
+    errors (the next tick's barrier does); returns the ms waited."""
+    t0 = time.perf_counter()
+    while store.flush_backlog():
+        time.sleep(0.001)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def durable_phase(torch, np, problem, card="cuda", root=DATA_ROOT) -> dict:
+    """Phase 10: the service's tick (``service_opts``) on durable stores —
+    the WAL group commit on the flusher, replay after a crash, a torn
+    frame, the epoch fence — and the durable sharded fleet. Returns the
+    card's launches by store. ``card="cpu"`` rehearses it on the CPU."""
+    import gc
+    import itertools
+    import random
+    import shutil
+    import uuid
+
+    from evergreen_tpu_torch.models import event as event_mod
+    from evergreen_tpu_torch.ops.distro_stats import fused_distro_stats
+    from evergreen_tpu_torch.ops.segment import segment_sum
+    from evergreen_tpu_torch.scheduler import resident, wrapper
+    from evergreen_tpu_torch.settings import CapacityConfig
+    from evergreen_tpu_torch.storage import durable
+    from evergreen_tpu_torch.storage.durable import DurableStore
+    from evergreen_tpu_torch.storage.lease import FileLease
+    from evergreen_tpu_torch.storage.store import Store
+    from evergreen_tpu_torch.utils.benchgen import NOW
+
+    on_card = torch.device(card).type == "cuda"
+    opts = service_opts(wrapper)
+    phases = TICK_PHASES + ("wal_commit",)
+    iters = CapacityConfig().iterations
+    solve_launches = (expected_launches([iters]) if on_card
+                      else {"fused_distro_stats": 0, "segment_sum": 0})
+    no_launches = {"fused_distro_stats": 0, "segment_sum": 0}
+    distros = problem[0]
+    keep = {d.id for d in distros[:-1]}
+    shutil.rmtree(root, ignore_errors=True)
+    dirs = {k: os.path.join(root, k) for k in ("a", "b", "fleet")}
+    leases, stores, seed_ms = {}, {}, {}
+    for key, on, is_durable in DURABLE_STORES:
+        t0 = time.perf_counter()
+        if is_durable:
+            lease = leases[key] = FileLease(os.path.join(dirs[key], "writer.lease"),
+                                            ttl_s=LEASE_TTL_S)
+            check(lease.try_acquire(), f"store ({key}): lease not acquired")
+            lease.start_renewing()
+            stores[key] = DurableStore(dirs[key], lease=lease)
+        else:
+            stores[key] = Store()
+        seed_tick_store(stores[key], problem, only=keep)
+        seed_ms[key] = (time.perf_counter() - t0) * 1e3
+    devices = {k: (card if on else "cpu") for k, on, _ in DURABLE_STORES}
+    # the stores reopened later: (a)'s crash copy and its thief on the
+    # card, and their comparators, (b)'s, on the CPU
+    devices.update({"replayed": card, "thief": card, "replayed-b": "cpu", "thief-b": "cpu"})
+    log(f"durable tick: config 3 (seed {SEED}) less {distros[-1].id} in (a) a DurableStore "
+        f"on the card, (b) one on the CPU, (c) the in-memory card store; leases "
+        f"{LEASE_TTL_S} s, renewing; seeding ms (a) {seed_ms['a']:.1f}, (b) "
+        f"{seed_ms['b']:.1f}, (c) {seed_ms['c']:.1f}; WAL bytes (a) "
+        f"{os.path.getsize(wal_path(stores['a']))}, (b) "
+        f"{os.path.getsize(wal_path(stores['b']))}")
+    barriers, writes = {}, {}
+
+    def watch(key, store):
+        """Time ``store``'s barriers and frame writes under ``key``."""
+        barriers[key] = timed_method(store, "sync_persist")
+        writes[key] = timed_method(store, "commit_group_inline")
+
+    for key in ("a", "b"):
+        watch(key, stores[key])
+    seqs = {k: itertools.count() for k in stores}
+    real_uuid4, real_time = uuid.uuid4, time.time
+    launches_by = {"a": {}, "c": {}, "replayed": {}, "thief": {}, "fleet": {}}
+
+    def add(key, got):
+        for k_, v in got.items():
+            launches_by[key][k_] = launches_by[key].get(k_, 0) + v
+
+    def tick(key, store, k, now, device):
+        """One tick of ``store``; the k-th tick of every store draws the
+        same uuid4 stream, reads the same clock and continues the event
+        sequence of ``key``. Returns (result, launches, phases, gc ms)."""
+        phase0 = {p: wrapper.TICK_PHASE_MS.state(phase=p)[1] for p in phases}
+        clock = GcClock()
+        gc.callbacks.append(clock)
+        reset_launches(fused_distro_stats, segment_sum)
+        rng = random.Random(3000 + k)
+        uuid.uuid4 = lambda: uuid.UUID(int=rng.getrandbits(128))
+        time.time = lambda: now
+        event_mod._SEQ = seqs[key]
+        try:
+            res = wrapper.run_tick(store, opts, now=now, device=device)
+        finally:
+            uuid.uuid4, time.time = real_uuid4, real_time
+            gc.callbacks.remove(clock)
+        got = read_launches(fused_distro_stats, segment_sum)
+        ph = {p: wrapper.TICK_PHASE_MS.state(phase=p)[1] - phase0[p] for p in phases}
+        return res, got, ph, clock.ms
+
+    def mirror_bytes(store):
+        plane = resident.peek_resident_plane(store)
+        stats = plane.stats() if plane is not None else {}
+        full = (sum(b.nbytes for b in plane._truth.buffers.values())
+                if plane is not None and plane._truth is not None else 0)
+        return stats.get("mirror_bytes_uploaded", 0), full
+
+    def same_docs(keyed, label, fresh=()):
+        """Every document of ``TICK_COLLECTIONS`` equal across the stores
+        of ``keyed`` (name -> store), as canonical JSON. A store whose persister is
+        fresh (``fresh``: reopened after a crash, or a new lease holder's)
+        rewrites the queue documents that a live store's tick skips: the
+        fresh stores are held to each other with every field, and to the
+        live ones without the queue documents' ``QUEUE_STAMPS``. Returns
+        the count of documents and of queue documents whose stamps differ
+        between the first fresh store and the first live one."""
+        full = {k: store_json(s, TICK_COLLECTIONS) for k, s in keyed.items()}
+        for group in ([k for k in keyed if k not in fresh], [k for k in keyed if k in fresh]):
+            for k in group[1:]:
+                check(full[k] == full[group[0]],
+                      f"{label}: the documents of {k} differ from {group[0]}'s")
+        n_docs = sum(len(next(iter(keyed.values())).collection(n)) for n in TICK_COLLECTIONS)
+        if not fresh:
+            return n_docs, 0
+        bare = {k: store_json(s, TICK_COLLECTIONS, stamps=False) for k, s in keyed.items()}
+        live = next(k for k in keyed if k not in fresh)
+        for k in fresh:
+            check(bare[k] == bare[live], f"{label}: the documents of {k} differ from "
+                  f"{live}'s beyond the queue documents' {QUEUE_STAMPS}")
+        restamped = sum(
+            1 for n in ("task_queues", "task_secondary_queues")
+            for d, e in zip(keyed[fresh[0]].collection(n).find(),
+                            keyed[live].collection(n).find())
+            if any(d.get(f) != e.get(f) for f in QUEUE_STAMPS))
+        return n_docs, restamped
+
+    def report(label, step):
+        for key, (res, ph, gc_ms, extra, up) in step.items():
+            mirror = (f"; mirror {up[0]} B H2D of a full {up[1]} B "
+                      f"({100.0 * up[0] / max(1, up[1]):.1f}%)" if up[1] else "")
+            log(f"durable tick {label} ({key}) ms: " + "; ".join(
+                f"{p} {ph[p]:.2f}" for p in phases)
+                + f"; whole tick {res.total_ms:.2f}; collector {gc_ms:.2f}" + extra
+                + mirror)
+
+    def durable_extra(key, store, start):
+        """The WAL side of a durable store's tick, once its frame is
+        written: bytes appended, the frame's write on the flusher, what
+        the check waited for it, and the barrier at the tick's start (the
+        previous frame's)."""
+        waited = wait_flushed(store)
+        wal0, n_writes, n_barriers = start
+        new_w = writes[key][n_writes:]
+        new_b = barriers[key][n_barriers:]
+        return (f"; WAL +{os.path.getsize(wal_path(store)) - wal0} B; frame "
+                f"write on the flusher " + ", ".join(f"{w:.2f}" for w in new_w)
+                + f" (still running when checked: {waited:.2f} ms); barrier at this "
+                f"tick's start " + (f"{new_b[0]:.3f}" if new_b else "none"))
+
+    def tick_checked(key, store, k, now, label, step, starts):
+        """The k-th tick of ``store`` on ``devices[key]``, held to a clean
+        solve (planner tpu, not degraded) and a solve tick's launches; its
+        report line goes into ``step`` and, for a durable store, what its
+        WAL side is measured from into ``starts``. Returns the result."""
+        dev = devices[key]
+        if key in writes:
+            starts[key] = (os.path.getsize(wal_path(store)), len(writes[key]),
+                           len(barriers[key]))
+        up0 = mirror_bytes(store)[0]
+        res, got, ph, gc_ms = tick(key, store, k, now, dev)
+        up = mirror_bytes(store)
+        step[key] = [res, ph, gc_ms, "", (up[0] - up0, up[1])]
+        check((res.planner_used, res.degraded) == ("tpu", ""),
+              f"tick {label} ({key}): planner {res.planner_used!r}, degraded "
+              f"{res.degraded!r}")
+        want = solve_launches if dev != "cpu" else no_launches
+        check(got == want, f"tick {label} ({key}): launches {got}, expected {want}")
+        if key in launches_by:
+            add(key, got)
+        return res
+
+    def wal_side(keyed, step, starts, label, pairs):
+        """Each durable store's WAL side of the step, once its frame is
+        written, into its report line; each store's records of the step
+        held to one group frame, and those of each pair in ``pairs``
+        equal (canonical)."""
+        frames = {}
+        for key, start in starts.items():
+            step[key][3] = durable_extra(key, keyed[key], start)
+            recs = [json.loads(x) for x in wal_lines(wal_path(keyed[key]), start[0])]
+            n_frames = sum(1 for x in recs if x["o"] == "g")
+            check(n_frames == 1, f"tick {label} ({key}): {n_frames} group frames")
+            frames[key] = [canon_record(x) for x in recs]
+        for x, y in pairs:
+            check(frames[x] == frames[y], f"tick {label}: the WAL records of ({x}) and "
+                  f"({y}) differ")
+        return frames
+
+    def crash_copy(key, src):
+        """A copy of ``src`` as a SIGKILL leaves it (the store not closed;
+        a lease's tmp file, which its renewer may be renaming, left out)."""
+        dst = os.path.join(root, key)
+        shutil.copytree(src, dst, ignore=shutil.ignore_patterns("*.lease.*"))
+        return dst
+
+    def replay(key, path, lease=None):
+        """``DurableStore(path)`` as ``key``, its barriers and frame writes
+        timed; returns the open's ms."""
+        t0 = time.perf_counter()
+        stores[key] = DurableStore(path, lease=lease)
+        ms = (time.perf_counter() - t0) * 1e3
+        watch(key, stores[key])
+        return ms
+
+    steps = [("1 (prime)", NOW, None), ("2 (after churn)", NOW + TICK_STEP_S, tick_churn),
+             ("3 (quiet)", NOW + 2 * TICK_STEP_S, None)]
+    try:
+        for k, (label, now, before) in enumerate(steps):
+            if before is not None:
+                for store in stores.values():
+                    before(store, now)
+            step, starts = {}, {}
+            results = {key: tick_checked(key, stores[key], k, now, label, step, starts)
+                       for key in ("a", "b", "c")}
+            r = results["a"]
+            for key in ("b", "c"):
+                for field in ("queues", "new_hosts", "n_tasks", "n_distros", "shed"):
+                    check(getattr(results[key], field) == getattr(r, field),
+                          f"tick {label}: TickResult.{field} of ({key}) differs from (a)'s")
+            n_docs, _ = same_docs(stores, f"tick {label}")
+            frames = wal_side(stores, step, starts, label, [("a", "b")])
+            log(f"durable tick {label}: planner tpu in all three; {sum(r.queues.values())} "
+                f"queue items in {len(r.queues)} queues, {len(r.intent_hosts)} intents; "
+                f"{n_docs} documents equal in (a), (b), (c); one group frame a durable "
+                f"store, records (a) == (b) ({len(frames['a'])} lines); launches "
+                f"{solve_launches['fused_distro_stats']} + {solve_launches['segment_sum']} "
+                f"in (a) and (c), 0 in (b)")
+            report(label, step)
+
+        # ---- crash after tick 3's barrier, and replay ------------------- #
+        # (a)'s copy reopens on the card; (b)'s on the CPU is its fresh
+        # persister's comparator
+        for key in ("a", "b"):
+            stores[key].sync_persist()
+        replay_ms = replay("replayed", crash_copy("a-crashed", dirs["a"]))
+        replay_b_ms = replay("replayed-b", crash_copy("b-crashed", dirs["b"]))
+        replayed = stores["replayed"]
+        check(store_json(replayed) == store_json(stores["a"]),
+              "the replayed copy differs from (a)")
+        check(store_json(stores["replayed-b"]) == store_json(stores["b"]),
+              "the replayed copy of (b) differs from (b)")
+        log(f"durable crash: (a) and (b) copied after tick 3's barrier without closing; "
+            f"DurableStore(copy of (a)) replayed in {replay_ms:.2f} ms "
+            f"({os.path.getsize(wal_path(replayed))} WAL bytes, report "
+            f"{replayed.replay_report}), (b)'s in {replay_b_ms:.2f} ms; every document "
+            f"equal to the original's")
+        for key, copied in (("a", "replayed"), ("b", "replayed-b")):
+            n = next(seqs[key])
+            seqs[key], seqs[copied] = itertools.count(n), itertools.count(n)
+        label, now = "4 (after churn)", NOW + 3 * TICK_STEP_S
+        tick4 = {k: stores[k] for k in ("a", "b", "c", "replayed", "replayed-b")}
+        for store in tick4.values():
+            tick_churn(store, now)
+        before4 = store_json(stores["a"])
+        step, starts = {}, {}
+        for key, store in tick4.items():
+            tick_checked(key, store, 3, now, label, step, starts)
+        wal_side(tick4, step, starts, label, [("a", "b"), ("replayed", "replayed-b")])
+        n_docs, restamped = same_docs(tick4, f"tick {label}", fresh=("replayed", "replayed-b"))
+        plane = resident.peek_resident_plane(replayed)
+        check(plane.rebuild_reasons == {"cold": 1},
+              f"the replayed store's plane rebuilt {plane.rebuild_reasons}")
+        if on_card:
+            up, full = step["replayed"][4]
+            check(up == full, f"the replayed store's mirror uploaded {up} of {full} B")
+        log(f"durable tick {label}: {n_docs} documents equal in (a), (b), (c) and the "
+            f"replayed copies, every field in (a), (b), (c) and in the two copies, the "
+            f"copies' WAL records equal; between the copies and the live stores "
+            f"{restamped} queue documents differ in {QUEUE_STAMPS} alone (the copies' "
+            f"fresh persisters rewrote what the live stores skipped); the card copy's "
+            f"plane a cold build, its mirror a full upload")
+        report(label, step)
+
+        # ---- a torn frame: tick 4's group is lost whole ---------------- #
+        for key in ("a", "b"):
+            stores[key].sync_persist()
+        torn = crash_copy("a-torn", dirs["a"])
+        with open(os.path.join(torn, durable.WAL_FILE), "rb") as fh:
+            data = fh.read()
+        at = data.rfind(b'{"o":"g"')
+        check(at >= 0, "no group frame to tear")
+        cut = at + (len(data) - at) // 2
+        with open(os.path.join(torn, durable.WAL_FILE), "r+b") as fh:
+            fh.truncate(cut)
+        t0 = time.perf_counter()
+        reopened = DurableStore(torn)
+        torn_ms = (time.perf_counter() - t0) * 1e3
+        check(store_json(reopened) == before4,
+              "the torn copy is not (a) as it stood before tick 4's group")
+        log(f"durable torn frame: the copy's WAL cut at byte {cut} of {len(data)}, inside "
+            f"tick 4's frame; reopened in {torn_ms:.2f} ms to (a)'s documents just "
+            f"before tick 4 (its whole group lost, nothing of it applied)")
+        reopened._journal.close()
+        for key in ("replayed", "replayed-b"):
+            stores.pop(key)._journal.close()
+
+        # ---- the fence: a thief takes (a)'s lease ---------------------- #
+        # and a second thief a copy of (b)'s directory, for the first
+        # thief's comparator on the CPU: a store as fresh as its own
+        leases["a"].stop_renewing()
+        stolen_b = crash_copy("b-stolen", dirs["b"])
+        time.sleep(LEASE_TTL_S + 0.2)
+        thieves = {"thief": FileLease(leases["a"].path, ttl_s=LEASE_TTL_S),
+                   "thief-b": FileLease(os.path.join(stolen_b, "writer.lease"),
+                                        ttl_s=LEASE_TTL_S)}
+        for key, owner in (("thief", "a"), ("thief-b", "b")):
+            lease = thieves[key]
+            check(lease.try_acquire() and lease.epoch == leases[owner].epoch + 1,
+                  f"{key} did not take the lease (epoch {lease.epoch})")
+        label, now = "5 (fenced)", NOW + 4 * TICK_STEP_S
+        wal0 = os.path.getsize(wal_path(stores["a"]))
+        docs0 = store_json(stores["a"])
+        res, got, ph, gc_ms = tick("a", stores["a"], 4, now, card)
+        plane = resident.peek_resident_plane(stores["a"])
+        check(res.degraded == "fenced" and res.queues == {} and res.planner_used == "",
+              f"tick {label} (a): degraded {res.degraded!r}")
+        check(got == no_launches, f"tick {label} (a): launches {got}")
+        check(os.path.getsize(wal_path(stores["a"])) == wal0, f"tick {label}: (a)'s WAL grew")
+        check(store_json(stores["a"]) == docs0, f"tick {label}: (a)'s documents changed")
+        check(not plane._ready and plane._pending_reason == "fenced"
+              and (plane._mirror is None or plane._mirror._bufs is None),
+              f"tick {label}: (a)'s plane was not dropped ({plane._pending_reason!r})")
+        log(f"durable tick {label} (a): degraded 'fenced' in {res.total_ms:.2f} ms, no "
+            f"launch, WAL {wal0} B unchanged, documents unchanged, plane invalidated "
+            f"'fenced' (mirror buffers dropped); thief epoch {thieves['thief'].epoch}")
+        for key, owner in (("thief", "a"), ("thief-b", "b")):
+            n = next(seqs[owner])
+            seqs[owner], seqs[key] = itertools.count(n), itertools.count(n)
+        open_ms = replay("thief", dirs["a"], lease=thieves["thief"])
+        open_b_ms = replay("thief-b", stolen_b, lease=thieves["thief-b"])
+        tick5 = {k: stores[k] for k in ("thief", "thief-b", "b", "c")}
+        step, starts = {}, {}
+        for key, store in tick5.items():
+            tick_checked(key, store, 4, now, label, step, starts)
+        wal_side(tick5, step, starts, label, [("thief", "thief-b")])
+        n_docs, restamped = same_docs(tick5, f"tick {label}", fresh=("thief", "thief-b"))
+        log(f"durable tick {label}: the thief's DurableStore (epoch {stores['thief'].epoch}) "
+            f"opened on (a)'s directory in {open_ms:.2f} ms, the CPU thief's on (b)'s "
+            f"copy in {open_b_ms:.2f} ms; {n_docs} documents equal in the thieves, (b) and "
+            f"(c), every field between the thieves, whose WAL records are equal; "
+            f"{restamped} queue documents differ in {QUEUE_STAMPS} alone between the "
+            f"thieves' fresh persisters and the live stores")
+        report(label, step)
+        stores["thief"].sync_persist()
+        t0 = time.perf_counter()
+        stores["thief"].checkpoint()
+        ck_ms = (time.perf_counter() - t0) * 1e3
+        snap = os.path.join(dirs["a"], durable.SNAPSHOT_FILE)
+        log(f"durable checkpoint (thief's store): {ck_ms:.2f} ms, snapshot "
+            f"{os.path.getsize(snap)} B")
+        for key in ("thief", "thief-b"):
+            stores[key].close()
+            thieves[key].release()
+        stores["a"].close()
+        stores["b"].close()
+        leases["b"].release()
+        check(not os.path.exists(leases["b"].path), "(b)'s lease file remains")
+    finally:
+        uuid.uuid4, time.time = real_uuid4, real_time
+        for lease in leases.values():
+            lease.stop_renewing()
+    del stores
+
+    # ---- the durable fleet ------------------------------------------------ #
+    fleet_phase(torch, np, problem, keep, card, dirs["fleet"], launches_by)
+    shutil.rmtree(root, ignore_errors=True)
+    return launches_by
+
+
+def fleet_phase(torch, np, problem, keep, card, data_dir, launches_by) -> None:
+    """Phase 10's durable fleet: ``ShardedScheduler.build(4, data_dir=...,
+    stacked="always")`` on the card against an in-memory CPU plane
+    (``stacked="never"``), the cron front end's round options; four rounds,
+    a crash copy, ``open_fleet`` and a fifth round, beside a second copy
+    reopened on the CPU (the reopened fleet's comparator, as fresh as it)."""
+    import shutil
+
+    from evergreen_tpu_torch.ops.distro_stats import fused_distro_stats
+    from evergreen_tpu_torch.ops.segment import segment_sum
+    from evergreen_tpu_torch.scheduler import wrapper
+    from evergreen_tpu_torch.scheduler.sharded_plane import (
+        ShardedScheduler,
+        fleet_owner_violations,
+        open_fleet,
+    )
+    from evergreen_tpu_torch.settings import CapacityConfig
+    from evergreen_tpu_torch.storage.store import Store
+    from evergreen_tpu_torch.utils import overload
+    from evergreen_tpu_torch.utils.benchgen import NOW
+
+    on_card = torch.device(card).type == "cuda"
+    opts = service_opts(wrapper)
+    iters = CapacityConfig().iterations
+    kw = dict(tick_opts=wrapper.TickOptions(use_cache=True), rebalance_enabled=True)
+    t0 = time.perf_counter()
+    planes = {
+        "card": ShardedScheduler.build(PLANE_SHARDS, data_dir=data_dir,
+                                       lease_ttl_s=LEASE_TTL_S, device=card,
+                                       stacked="always", **kw),
+        "cpu": ShardedScheduler.build(PLANE_SHARDS, device="cpu", stacked="never", **kw),
+    }
+    build_ms = (time.perf_counter() - t0) * 1e3
+    for plane in planes.values():
+        src = Store()
+        seed_tick_store(src, problem, only=keep)
+        plane.seed_partition(src)
+        for s in plane.stores:
+            CapacityConfig(pool_quotas=PLAN_QUOTA, fleet_intent_budget=PLAN_BUDGET).set(s)
+    log(f"durable fleet: {PLANE_SHARDS} DurableStores in one directory (build "
+        f"{build_ms:.2f} ms, leases {LEASE_TTL_S} s), stacked='always' on the card, "
+        f"against an in-memory CPU plane, stacked='never'; rounds with the cron "
+        f"front end's options; seeded by seed_partition")
+    real_time = time.time
+    stacked_calls = {"card": timed_stacked_solve(planes["card"])}
+    reopened = {}
+    copies = [data_dir + "-crashed", data_dir + "-crashed-cpu"]
+
+    def plane_docs(plane, stamps):
+        return json.dumps([[
+            [canon_doc(d) if stamps or c not in ("task_queues", "task_secondary_queues")
+             else {k: v for k, v in canon_doc(d).items() if k not in QUEUE_STAMPS}
+             for d in s.collection(c).find()] for c in PLANE_COLLECTIONS]
+            for s in plane.stores], sort_keys=True, default=str)
+
+    def run_round(label, r, now, keyed, fresh=()):
+        """One round of every plane of ``keyed``; the card plane's mode held
+        to ``FLEET_MODES``; documents equal across the planes, with every
+        field within the live planes and within the ``fresh`` ones (fresh
+        persisters), and without the queue documents' ``QUEUE_STAMPS``
+        between the two."""
+        res, launches, drift = {}, {}, []
+        for name, plane in keyed.items():
+            n_calls = len(stacked_calls.get(name, ()))
+            reset_launches(fused_distro_stats, segment_sum)
+            time.time = lambda: now
+            try:
+                res[name] = plane.tick(now=now, opts=opts)
+            finally:
+                time.time = real_time
+            launches[name] = read_launches(fused_distro_stats, segment_sum)
+            if name in stacked_calls:
+                drift = [d for _, d in stacked_calls[name][n_calls:] if d is not None]
+                check_plane_a_mode(r, f"{label} ({name})", res[name].solve_mode, drift,
+                                   modes=FLEET_MODES)
+        full = {}
+        for name, plane in keyed.items():
+            check(fleet_owner_violations(plane.stores) == [],
+                  f"fleet round {label}: {name} violates exactly-one-owner")
+            check(not res[name].degraded, f"fleet round {label}: {name} degraded "
+                  f"{res[name].degraded}")
+            blocks = sum(1 for x in res[name].results.values() if x.planner_used == "tpu")
+            check(blocks == PLANE_SHARDS, f"fleet round {label}: {name} solved {blocks}")
+            dev = plane.device.type
+            want = (expected_launches([iters] * blocks) if dev == "cuda" and on_card
+                    else {"fused_distro_stats": 0, "segment_sum": 0})
+            check(launches[name] == want, f"fleet round {label}: {name} launches "
+                  f"{launches[name]}, expected {want}")
+            if dev == "cuda":
+                for k_, v in launches[name].items():
+                    launches_by["fleet"][k_] = launches_by["fleet"].get(k_, 0) + v
+            full[name] = plane_docs(plane, stamps=True)
+        names = list(keyed)
+        for group in ([n for n in names if n not in fresh], [n for n in names if n in fresh]):
+            for name in group[1:]:
+                check(full[name] == full[group[0]], f"fleet round {label}: the documents "
+                      f"of {name} differ from {group[0]}'s")
+        if fresh:
+            bare = {n: plane_docs(keyed[n], stamps=False) for n in names}
+            for name in names[1:]:
+                check(bare[name] == bare[names[0]], f"fleet round {label}: the documents "
+                      f"of {name} differ from {names[0]}'s beyond {QUEUE_STAMPS}")
+        for name in names[1:]:
+            check(res[name].migrations == res[names[0]].migrations,
+                  f"fleet round {label}: migrations differ")
+        log(f"durable fleet round {label}: modes " + ", ".join(
+            f"{n} {res[n].solve_mode}" for n in names) + f" (card drift {drift}); wall ms "
+            + ", ".join(f"{n} {res[n].total_ms:.2f}" for n in names) + f"; migrations "
+            + json.dumps([{k: m[k] for k in ("_id", "group", "from", "to")}
+                          for m in res[names[0]].migrations])
+            + "; documents equal" + (f" (every field between {'/'.join(fresh)}, whose "
+                                      f"persisters are fresh; {QUEUE_STAMPS} aside "
+                                      f"against the rest)" if fresh else "")
+            + "; launches per plane "
+            + json.dumps({n: launches[n]["fused_distro_stats"] for n in names}))
+        return res
+
+    try:
+        for r, label in enumerate(FLEET_ROUNDS):
+            now = NOW + r * TICK_STEP_S
+            if r == 1:
+                for plane in planes.values():
+                    for s in plane.stores:
+                        tick_churn(s, now)
+            for plane in planes.values():
+                overload.monitor_for(plane.stores[0]).set_floor(
+                    overload.YELLOW if r == FLEET_YELLOW else overload.GREEN)
+            res = run_round(label, r, now, planes)
+            check((r == FLEET_YELLOW) == bool(res["card"].migrations),
+                  f"fleet round {label}: migrations {res['card'].migrations}")
+        for s in planes["card"].stores:
+            s.sync_persist()
+        for path in copies:  # a lease's tmp file may be renamed under the copy
+            shutil.copytree(data_dir, path, ignore=shutil.ignore_patterns("*.lease.*"))
+        open_ms = {}
+        for name, path, dev, stacked in (("reopened", copies[0], card, "always"),
+                                         ("reopened cpu", copies[1], "cpu", "never")):
+            t0 = time.perf_counter()
+            reopened[name] = open_fleet(path, PLANE_SHARDS, lease_ttl_s=LEASE_TTL_S,
+                                        device=dev, stacked=stacked, **kw)
+            open_ms[name] = (time.perf_counter() - t0) * 1e3
+        stacked_calls["reopened"] = timed_stacked_solve(reopened["reopened"])
+        log(f"durable fleet: the directory copied twice after round 4 without closing; "
+            f"open_fleet(copy) in {open_ms['reopened']:.2f} ms on the card, "
+            f"{open_ms['reopened cpu']:.2f} ms on the CPU (stale leases stolen, epochs "
+            f"{[s.epoch for s in reopened['reopened'].stores]}, handoffs reconciled)")
+        now = NOW + len(FLEET_ROUNDS) * TICK_STEP_S
+        keyed = {**reopened, "cpu": planes["cpu"]}
+        for plane in keyed.values():
+            overload.monitor_for(plane.stores[0]).set_floor(overload.GREEN)
+        run_round("5 (reopened)", len(FLEET_ROUNDS), now, keyed, fresh=tuple(reopened))
+    finally:
+        time.time = real_time
+        for plane in (planes["card"], *reopened.values(), planes["cpu"]):
+            plane.close()
+    left = [f for d in [data_dir] + copies if os.path.isdir(d)
+            for f in os.listdir(d) if f.endswith(".lease")]
+    check(left == [], f"durable fleet: lease files left after close(): {left}")
+    log("durable fleet: the three durable fleets closed, every shard lease released")
+
+
 def main() -> int:
     profile_dir = None
     sweep_mode = sys.argv[1:] == ["--sweep"]
@@ -2072,6 +2731,15 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    t_start = last = time.perf_counter()
+
+    def phase_done(name):
+        """Log the wall seconds of the phase that just ended."""
+        nonlocal last
+        now = time.perf_counter()
+        log(f"{name}: {now - last:.1f} s wall ({now - t_start:.1f} s since the card "
+            f"was set)")
+        last = now
 
     # ---- 1. card and build ------------------------------------------------- #
     kind = torch.cuda.get_device_name(0)
@@ -2326,47 +2994,73 @@ def main() -> int:
             os.path.join(profile_dir, name) if profile_dir else None,
         )
 
+    phase_done("phases 1-3")
+
     # ---- 4. stacked rounds; 5. the device mirror ------------------------- #
     stacked_phase(torch, np, problems["seed0"], F32_TOL, profile_dir)
+    phase_done("phase 4")
     mirror_phase(torch, np, problems["seed0"])
+    phase_done("phase 5")
 
     # ---- 6. the tick's planning half --------------------------------------- #
     planning_phase(torch, np)
+    phase_done("phase 6")
 
     # ---- 7. the whole tick ------------------------------------------------- #
     tick_launches = tick_phase(torch, np, problems["seed0"])
-    # the same ticks on fresh stores with the CPU's store ticked first at
-    # each step, so neither store's phase times owe to the order
-    again = tick_phase(torch, np, problems["seed0"], card_first=False)
+    # the two solve ticks again on fresh stores with the CPU's store
+    # ticked first at each step, so neither store's phase times owe to
+    # the order (the serial ticks 3-4 print no phase times, and launch
+    # nothing)
+    again = tick_phase(torch, np, problems["seed0"], card_first=False, depth=2)
     check(again == tick_launches, f"tick: launches {again} with the CPU first, "
           f"{tick_launches} with the card first")
+    phase_done("phase 7")
 
     # ---- 8. the service's tick -------------------------------------------- #
     service = service_phase(torch, np, problems["seed0"], sm_mhz)
+    phase_done("phase 8")
 
     # ---- 9. the sharded plane ---------------------------------------------- #
     log(f"sharded plane on {smi}")
     sharded = sharded_phase(torch, np, problems["seed0"])
+    phase_done("phase 9")
 
-    # ---- 10. result -------------------------------------------------------- #
-    # launches: phase 7's ticks (card first), phase 8's card stores and
-    # phase 9's card planes; fused_distro_stats on the warm card store and
-    # on plane (b) (whose shard ticks pack through their resident planes)
-    # ran on the slab layout: those launches are the slab row's alone
+    # ---- 10. the durable service tick and the durable fleet ----------------- #
+    log(f"durable tick on {smi}")
+    durable = durable_phase(torch, np, problems["seed0"])
+    phase_done("phase 10")
+
+    # ---- 11. result -------------------------------------------------------- #
+    # launches: phase 7's ticks (card first), phase 8's card stores, phase
+    # 9's card planes and phase 10's card stores and fleets ("durable";
+    # its in-memory control store (c) apart, as "durable control"). The
+    # warm card store and plane (b) of phases 8-9, and phase 10's card
+    # stores, pack through their resident planes: their fused_distro_stats
+    # ran on the slab layout and are the slab row's alone; phase 10's
+    # fleet stacks (cold builds at the common dims)
+    slab_stores = ("a", "replayed", "thief")
     paths = {"tick": tick_launches, **service["launches"]}
     for r in rows:
+        slab_only = r["name"] == "fused_distro_stats"
         r["launches_by_path"] = {
             p: c[r["name"]] for p, c in paths.items()
-            if not (r["name"] == "fused_distro_stats" and p == "card warm")}
+            if not (slab_only and p == "card warm")}
         r["launches_by_path"]["sharded"] = sum(
-            c[r["name"]] for p, c in sharded.items()
-            if not (r["name"] == "fused_distro_stats" and p == "b"))
+            c[r["name"]] for p, c in sharded.items() if not (slab_only and p == "b"))
+        r["launches_by_path"]["durable"] = sum(
+            c.get(r["name"], 0) for p, c in durable.items()
+            if p != "c" and not (slab_only and p != "fleet"))
+        r["launches_by_path"]["durable control"] = (
+            0 if slab_only else durable["c"].get(r["name"], 0))
         r["launches"] = sum(r["launches_by_path"].values())
     slab = service["slab_row"]
     slab["floor_ms"] = floor_ms
     slab["launches_by_path"] = {
         "card warm": service["launches"]["card warm"]["fused_distro_stats"],
-        "sharded": sharded["b"]["fused_distro_stats"]}
+        "sharded": sharded["b"]["fused_distro_stats"],
+        "durable": sum(durable[k].get("fused_distro_stats", 0) for k in slab_stores),
+        "durable control": durable["c"].get("fused_distro_stats", 0)}
     slab["launches"] = sum(slab["launches_by_path"].values())
     rows.append(slab)
     # the byte and chain bounds behind bound_ms are in the log lines above

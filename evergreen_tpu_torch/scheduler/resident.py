@@ -43,8 +43,9 @@ Per-distro delta application picks the cheapest sound path:
                                             instances are spliced, not
                                             repacked; holes compact)
 
-A delta-stream gap (cache re-primed), a distro-set change that cannot be
-spliced, a slab overflow, or an exception inside delta application falls
+A delta-stream gap (cache re-primed), a change of the store's fencing
+epoch (``store.epoch``: a durable store reopened under a newer lease),
+a distro-set change that cannot be spliced, a slab overflow, or an exception inside delta application falls
 back to a full rebuild, counted in ``stats()`` and guarded by a circuit
 breaker so repeated delta failures stop being attempted until a cooldown
 passes. An error inside the plane's host work makes ``sync`` return None:
@@ -58,9 +59,12 @@ are then the card's tensors. A mirror upload that fails raises
 ``MirrorError`` out of ``sync`` (and out of the tick): it is a fault of
 the card, not host work to redo. On the CPU the truth is copied into an
 arena leased from the tick's ``ArenaPool``, as the JAX package does over
-its CPU client. Left out, with the fleet planes: the shared-memory
-publish (``attach_shm_sink``); with the durable store: the store-epoch
-gap and the recovery pass's invalidation; the tracing spans.
+its CPU client. ``invalidate(reason)`` drops the columns and the
+mirror's resident buffers, so the next sync rebuilds (counted under
+``reason``) and uploads in full: the tick calls it with ``"fenced"``
+when the store's lease epoch is superseded. Left out, with the fleet
+planes: the shared-memory publish (``attach_shm_sink``); with the
+recovery pass: its ``"recovery"`` invalidation; the tracing spans.
 """
 from __future__ import annotations
 
@@ -216,11 +220,13 @@ class ResidentPlane:
     """The resident columns of one store. ``mirror`` (a ``DeviceMirror``)
     publishes each tick as the mirror's resident buffers; without one,
     each tick is a copy of the truth into a pooled arena. The plane
-    keeps no reference to ``store`` (the JAX plane reads it only for the
-    store epoch and the tracer, both left out), so the per-store
-    registry below never keeps a store alive."""
+    holds ``store`` weakly (it reads only its fencing epoch), so the
+    per-store registry below never keeps a store alive."""
 
     def __init__(self, store: Store, mirror: Optional[DeviceMirror] = None) -> None:
+        self._store = weakref.ref(store)
+        #: the store's fencing epoch at the last rebuild
+        self.epoch = 0
         self._ready = False
         self._pending_reason = "cold"
         self.prime_gen = -1
@@ -266,12 +272,17 @@ class ResidentPlane:
         return (resolve_device(self._mirror.device) if self._mirror is not None
                 else torch.device("cpu"))
 
+    def _store_epoch(self) -> int:
+        return getattr(self._store(), "epoch", 0)
+
     # ------------------------------------------------------------------ #
     # public surface
     # ------------------------------------------------------------------ #
 
     def invalidate(self, reason: str) -> None:
-        """Drop the resident columns; the next sync full-rebuilds."""
+        """Drop the resident columns and the mirror's buffers; the next
+        sync full-rebuilds (counted under ``reason``) and uploads in full.
+        Called on lease fencing and any unexplained inconsistency."""
         self._ready = False
         self._pending_reason = reason
         if self._mirror is not None:
@@ -402,6 +413,8 @@ class ResidentPlane:
             return self._pending_reason or "cold"
         if prime_gen != self.prime_gen:
             return "delta-gap"
+        if self._store_epoch() != self.epoch:
+            return "epoch"
         if len(solver_distros) != len(self.distro_ids) or any(
             d.id != did for d, did in zip(solver_distros, self.distro_ids)
         ):
@@ -581,6 +594,7 @@ class ResidentPlane:
         pack_distro_settings(self._bool_view_cols(), solver_distros)
 
         self.n_valid = sum(s.n for s in slabs)
+        self.epoch = self._store_epoch()
         self.prime_gen = prime_gen
         self._ready = True
         self._pending_reason = ""

@@ -42,9 +42,17 @@ source marks its record). A failure between the legs heals in process
 fuse_level``) over the shards' levels is set as a floor on an attached
 front store's ladder every round.
 
-Left out, with what brings them: ``build(data_dir=...)`` and
-``open_fleet`` (the durable store: per-shard leases and WAL segments);
-``assign_next_task`` and the host routing it reads (``store_of``,
+**Durable fleet.** ``build(n, data_dir=...)`` opens one
+``DurableStore`` per shard in one directory, each journaling to its own
+WAL segment (``wal.shard<k>.log``) under its own lease
+(``writer.shard<k>.lease``); a fleet that fails to open part-way
+releases what it took. ``open_fleet`` reopens (recovers) such a fleet
+and reconciles handoffs caught mid-flight; ``close()`` closes the
+durable shard stores (final commit and checkpoint) and releases their
+leases. The release and prime legs each commit as one WAL group, and
+the shard ticks run with the round's ``TickOptions.async_persist``.
+
+Left out, with what brings them: ``assign_next_task`` and the host routing it reads (``store_of``,
 ``host_shard``, ``find_host``: dispatch); the constructor's
 ``topology`` and ``max_handoffs_per_round`` options (the cron front
 end's sharding settings), fixed here at the shard count's topology and
@@ -495,13 +503,50 @@ class ShardedScheduler:
     # -- construction helpers ------------------------------------------- #
 
     @classmethod
-    def build(cls, n_shards: int, **kw) -> "ShardedScheduler":
-        """N in-memory shard stores (``kw`` goes to the constructor)."""
+    def build(
+        cls,
+        n_shards: int,
+        data_dir: Optional[str] = None,
+        sync: str = "flush",
+        lease_ttl_s: float = 10.0,
+        **kw,
+    ) -> "ShardedScheduler":
+        """N in-memory shard stores, or, with ``data_dir``, N
+        DurableStores sharing one directory, each journaling to its own
+        WAL segment under its own lease (``kw`` goes to the
+        constructor)."""
         stores: List[Store] = []
-        for k in range(n_shards):
-            s = Store()
-            s.shard_id = k
-            stores.append(s)
+        if data_dir is None:
+            for k in range(n_shards):
+                s = Store()
+                s.shard_id = k
+                stores.append(s)
+            return cls(stores, **kw)
+        from ..storage.durable import DurableStore
+        from ..storage.lease import FileLease, shard_lease_path
+
+        try:
+            for k in range(n_shards):
+                lease = FileLease(shard_lease_path(data_dir, k), ttl_s=lease_ttl_s)
+                if not lease.acquire(timeout_s=30.0, poll_s=0.1):
+                    raise TimeoutError(f"could not acquire shard {k}'s lease")
+                stores.append(
+                    DurableStore(data_dir, sync=sync, lease=lease, shard_id=k))
+        except BaseException:
+            # a partial fleet must not leak: close the journals and
+            # release the leases already taken, or every later opener
+            # waits out their TTLs
+            for s in stores:
+                try:
+                    s._journal.close()
+                except Exception:  # noqa: BLE001 — best-effort unwind;
+                    # the original failure re-raises below
+                    pass
+                try:
+                    s._lease.release()
+                except Exception:  # noqa: BLE001 — as above
+                    pass
+            raise
         return cls(stores, **kw)
 
     def seed_partition(self, source: Store) -> Dict[int, int]:
@@ -986,12 +1031,30 @@ class ShardedScheduler:
         return healed
 
     def close(self) -> None:
-        """Compact the reconciled handoff records and stop the workers."""
+        """Compact the reconciled handoff records, stop the workers, and
+        close the durable shard stores (final group commit and
+        checkpoint, which then holds the trimmed handoff records) and
+        release their leases, so a reopened fleet never waits out stale
+        lease TTLs."""
         try:
             self.compact_handoffs()
         except Exception:  # noqa: BLE001 — housekeeping never blocks shutdown
             pass
         self._stop_pool()
+        for s in self.stores:
+            if getattr(s, "data_dir", None) is not None:
+                try:
+                    s.close()
+                except Exception:  # noqa: BLE001 — best-effort shutdown;
+                    # recovery at the next open heals
+                    pass
+            lease = getattr(s, "_lease", None)
+            if lease is not None:
+                try:
+                    lease.release()
+                except Exception:  # noqa: BLE001 — the TTL covers a
+                    # failed release
+                    pass
 
 
 # --------------------------------------------------------------------------- #
@@ -1045,6 +1108,15 @@ def merge_fleet_state(stores: Sequence[Store]) -> Store:
 
 
 # -- per-store plane attachment ---------------------------------------------- #
+
+
+def open_fleet(data_dir: str, n_shards: int, **kw) -> "ShardedScheduler":
+    """Open (or recover) a durable sharded plane: each shard store
+    replays its own segment, then the cross-shard handoff
+    reconciliation converges migrations caught mid-flight."""
+    plane = ShardedScheduler.build(n_shards, data_dir=data_dir, **kw)
+    plane.reconcile_handoffs()
+    return plane
 
 
 def attach_sharded_plane(store: Store, plane: ShardedScheduler) -> None:

@@ -16,7 +16,19 @@ or has its breaker open degrades the tick to the serial oracle
 (``KernelError``) is not degraded: it raises out of the tick.
 
 ``run_tick`` runs the solve and the capacity program on the card and
-raises without one unless the caller passes ``device="cpu"``. With
+raises without one unless the caller passes ``device="cpu"``. On a
+durable store (``storage/durable.py``) the tick is the JAX package's
+guarded tick: a holder whose lease epoch was superseded plans and writes
+nothing (``degraded="fenced"``) and drops its resident plane and the
+mirror's buffers; the persist barrier (``sync_persist``) waits out the
+previous tick's asynchronous commit first, and a deferred write error
+resets the persister and heals with a checkpoint
+(``"persist-failed"``); every write of the tick rides one WAL group
+frame, committed at the end (``wal_commit`` phase) synchronously or,
+with ``TickOptions.async_persist``, on the store's flusher thread, so
+the write overlaps the next tick. An exception that escapes the tick
+(``KernelError``, ``MirrorError``) still commits the open group first.
+On the in-memory store these hooks do nothing. With
 ``TickOptions.use_cache`` it gathers from the per-store TickCache
 (``scheduler/cache.py``) and, unless ``use_resident`` is off, packs
 through the resident state plane (``scheduler/resident.py``), whose
@@ -30,9 +42,7 @@ tick) and ``force_dims``. The tick always plans solver distros with the
 batched solve, unschedules stale underwater tasks and caps in-flight
 intents at ``MAX_INTENT_HOSTS_IN_FLIGHT``: the JAX options
 ``planner_version``, ``underwater_unschedule`` and ``max_intent_hosts``
-are left out. Left out with the durable store: ``async_persist``, the
-fenced and WAL-commit branches (and with them ``_invalidate_resident``);
-with tracing: the spans and ``TickResult.trace_id``.
+are left out; with tracing: the spans and ``TickResult.trace_id``.
 """
 from __future__ import annotations
 
@@ -67,6 +77,7 @@ from ..ops.packing import ArenaPool
 from ..ops.resident_ops import MirrorError
 from ..ops.solve import run_solve_packed
 from ..settings import ReleaseModeConfig, ServiceFlags
+from ..storage.lease import EpochFencedError
 from ..storage.store import Store
 from ..utils import faults
 from ..utils import lockcheck as _lockcheck
@@ -79,14 +90,14 @@ from .cache import TickCache
 from .capacity_plane import capacity_plane_for, extract_fused_view
 from .persister import persist_task_queue, persister_state_for
 from .provenance import TickProvenance, build_provenance
-from .resident import resident_plane_for
+from .resident import peek_resident_plane, resident_plane_for
 from .serial import RunningTaskEstimate
 from .snapshot import Snapshot, build_snapshot, deps_met_for, pack_capacity_page
 
 TICK_DEGRADED = _metrics.counter(
     "scheduler_tick_degraded_total",
-    "Tick degradations by cause (persist_failed / breaker_open / "
-    "solve_failed / shed); one tick can count several causes.",
+    "Tick degradations by cause (fenced / persist_failed / breaker_open "
+    "/ solve_failed / shed); one tick can count several causes.",
     labels=("cause",),
     legacy=lambda labels: [f"scheduler.tick.{labels['cause']}"],
 )
@@ -103,7 +114,7 @@ TICK_MS = _metrics.histogram(
 TICK_PHASE_MS = _metrics.histogram(
     "scheduler_tick_phase_duration_ms",
     "Wall time of each tick pipeline phase (delta_drain / pack / solve "
-    "/ unpack / cmp / capacity / persist).",
+    "/ unpack / cmp / capacity / persist / wal_commit).",
     labels=("phase",),
 )
 INTENT_BUDGET_CLAMPED = _metrics.counter(
@@ -194,6 +205,12 @@ class TickOptions:
     #: whole-tick budget: when exceeded, optional work is shed — stats
     #: first, then event emission — but never planning (0 = unlimited)
     tick_budget_s: float = 0.0
+    #: commit the tick's WAL group on the store's flusher thread, so the
+    #: file write of tick t overlaps tick t+1 (the long-lived service
+    #: sets this); a deferred write error surfaces at the next tick's
+    #: barrier as degraded="persist-failed". False: the commit (and any
+    #: error) lands before run_tick returns
+    async_persist: bool = False
     #: incremental runnable-set maintenance between ticks
     #: (scheduler/cache.py), packed through the resident state plane
     #: (scheduler/resident.py): the snapshot columns stay persistent
@@ -231,7 +248,9 @@ class TickResult:
     #: "tpu" | "serial" | "" (no solver distros)
     planner_used: str = ""
     #: non-empty when the tick degraded: "solve-failed" | "solve-deadline"
-    #: | "breaker-open" | "persist-failed"
+    #: | "breaker-open" | "persist-failed" | "fenced" (the writer's lease
+    #: epoch was superseded: the tick's WAL group was shed and the holder
+    #: stood down)
     degraded: str = ""
     #: optional work shed under the tick budget or the overload ladder
     #: ("events", "stats")
@@ -529,15 +548,126 @@ def run_tick(
     dev = resolve_device(device)
     opts = opts or TickOptions()
     now = _time.time() if now is None else now
-    t0 = _time.perf_counter()
-    # stamp the tick start on the overload ladder before any work, so a
-    # tick that blows its cadence is visible as lag on the NEXT
-    # evaluation even if everything below degrades
-    overload_mod.monitor_for(store).note_tick_start(now)
-    result = _run_tick_body(store, opts, now, t0, persister_state_for(store), dev)
+    result = _run_tick_guarded(store, opts, now, dev)
     TICK_MS.observe(result.total_ms)
     TICKS_TOTAL.inc(outcome=result.degraded or "ok")
     return result
+
+
+def _run_tick_guarded(
+    store: Store, opts: TickOptions, now: float, dev
+) -> TickResult:
+    t0 = _time.perf_counter()
+    pstate = persister_state_for(store)
+    _rlog = get_logger("resilience")
+
+    def _fenced_result() -> TickResult:
+        # the holder's lease epoch was superseded: plan nothing, write
+        # nothing (the lease's on_lost path already stood it down)
+        TICK_DEGRADED.inc(cause="fenced")
+        _invalidate_resident(store, "fenced")
+        _rlog.error("degraded-tick", reason="fenced", fallback="none")
+        return TickResult(
+            queues={}, new_hosts={}, intent_hosts=[], n_tasks=0,
+            n_distros=0, total_ms=(_time.perf_counter() - t0) * 1e3,
+            degraded="fenced",
+        )
+
+    # a holder deposed between ticks must not even begin: the check
+    # re-reads the lease file, so a steal the renewer has not yet
+    # noticed is caught here rather than after a full solve
+    try:
+        store.assert_not_fenced(read_lease_file=True)
+    except EpochFencedError:
+        return _fenced_result()
+
+    # stamp the tick start on the overload ladder before any work, so a
+    # tick that blows its cadence is visible as lag on the NEXT
+    # evaluation even if everything below degrades
+    monitor = overload_mod.monitor_for(store)
+    monitor.note_tick_start(now)
+
+    # persist barrier first, before this tick writes anything: wait out
+    # the previous tick's async group commit and surface its deferred
+    # error. A lost group means the WAL may lack the delta bases the
+    # fingerprints assume: reset them (full rewrites this tick) and heal
+    # durability with a checkpoint of the in-memory truth.
+    prior_persist_failed = False
+    try:
+        store.sync_persist()
+    except EpochFencedError:
+        return _fenced_result()  # the previous tick's commit was fenced
+    except Exception as exc:  # noqa: BLE001 — the previous tick's commit
+        prior_persist_failed = True
+        pstate.reset()
+        store.heal_durability()
+        TICK_DEGRADED.inc(cause="persist_failed")
+        _rlog.error(
+            "wal-group-commit-failed", deferred=True, error=repr(exc)[-300:]
+        )
+
+    # the tick's WAL group: every journaled write until the commit at the
+    # end of the tick rides in one framed append
+    store.begin_tick()
+    committed = [False]
+    try:
+        return _run_tick_body(
+            store, opts, now, t0, pstate, dev, monitor,
+            prior_persist_failed, committed,
+        )
+    finally:
+        if not committed[0]:
+            # an exception escaped mid-tick (a card fault among them):
+            # commit what was buffered (memory already holds it) so the
+            # group is never left open
+            try:
+                store.end_tick()
+            except EpochFencedError:
+                # fenced mid-tick: the store shed the group; a fenced
+                # holder must not heal (it owns no snapshot any more)
+                pstate.reset()
+            except Exception:  # noqa: BLE001 — best-effort cleanup, but a
+                # lost group still invalidates the delta bases
+                pstate.reset()
+                store.heal_durability()
+
+
+def _invalidate_resident(store: Store, reason: str) -> None:
+    """Drop the store's resident plane (and its mirror's buffers on the
+    card), if it has one."""
+    plane = peek_resident_plane(store)
+    if plane is not None:
+        plane.invalidate(reason)
+
+
+def _commit_tick_group(store: Store, opts: TickOptions) -> str:
+    """Commit the tick's WAL group; returns "" or a degradation reason."""
+    try:
+        if opts.async_persist:
+            store.end_tick_async()
+        else:
+            store.end_tick()
+        return ""
+    except EpochFencedError:
+        # the epoch was superseded between begin_tick and the commit: the
+        # store shed the group and stood the holder down; no heal (a
+        # fenced holder must not touch the snapshot a newer epoch owns)
+        persister_state_for(store).reset()
+        _invalidate_resident(store, "fenced")
+        TICK_DEGRADED.inc(cause="fenced")
+        get_logger("resilience").error(
+            "tick-fenced", epoch=getattr(store, "epoch", 0)
+        )
+        return "fenced"
+    except Exception as exc:  # noqa: BLE001 — a WAL error degrades the
+        # tick, never kills it
+        persister_state_for(store).reset()
+        store.heal_durability()
+        TICK_DEGRADED.inc(cause="persist_failed")
+        get_logger("resilience").error(
+            "wal-group-commit-failed", deferred=False, error=repr(exc)[-300:]
+        )
+        return "persist-failed"
 
 
 def _run_tick_body(
@@ -547,6 +677,9 @@ def _run_tick_body(
     t0: float,
     pstate,
     dev,
+    monitor,
+    prior_persist_failed: bool,
+    committed: list,
 ) -> TickResult:
     task_mod.unschedule_stale_underwater(
         store, "", now, UNDERWATER_UNSCHEDULE_THRESHOLD_S
@@ -595,7 +728,7 @@ def _run_tick_body(
     #: planned host-side (cmp/serial) fall back to the dict
     met_cols: Dict[str, List[bool]] = {}
     planner_used = ""
-    degraded = ""
+    degraded = "persist-failed" if prior_persist_failed else ""
     shed: List[str] = []
     provenance = None
     #: distro id → (pool index, capacity opt-in) read off the packed
@@ -830,7 +963,7 @@ def _run_tick_body(
     # work (stats, event emission) up front — the same work the tick
     # budget sheds reactively, but driven by SERVICE-wide load instead
     # of this tick's own overrun
-    olevel = overload_mod.monitor_for(store).evaluate()
+    olevel = monitor.evaluate()
 
     def _shed_optional() -> str:
         """"" when optional work may run, else the shed reason."""
@@ -978,6 +1111,21 @@ def _run_tick_body(
             budget_s=opts.tick_budget_s,
             overload=overload_mod.level_name(olevel),
         )
+    # commit the tick's WAL group: sync mode surfaces a write error as
+    # THIS tick's degradation; async mode hands the frame to the flusher
+    # (the write overlaps the next tick) and a deferred error degrades
+    # the NEXT tick at its barrier. The commit time feeds the ladder's
+    # store-latency EWMA
+    committed[0] = True
+    t_commit = _time.perf_counter()
+    commit_reason = _commit_tick_group(store, opts)
+    commit_ms = (_time.perf_counter() - t_commit) * 1e3
+    TICK_PHASE_MS.observe(commit_ms, phase="wal_commit")
+    monitor.observe("store_latency_ms", commit_ms, ewma=0.4)
+    if commit_reason == "fenced":
+        degraded = "fenced"  # supersedes any earlier per-distro reason
+    else:
+        degraded = degraded or commit_reason
     total_ms = (_time.perf_counter() - t0) * 1e3
     if provenance is not None:
         # "why is task X at rank Y" stays answerable after the tick

@@ -15,8 +15,11 @@ The payload (``owner``, ``pid``, ``at``, ``epoch`` and the ``"k"`` CRC
 stamp), the floor file and the steal protocol are the JAX package's byte
 for byte, so a JAX leader and a port leader contend for one lease with
 one epoch sequence. ``EpochFencedError`` is the JAX package's error for
-a writer bound to a superseded epoch: the sharded plane's handoff
-re-raises it, and only a durable store (not ported) raises it.
+a writer bound to a superseded epoch: the durable store
+(``storage/durable.py``) raises it once a newer epoch is observed, and
+the tick and the sharded plane's handoff read it. Each scheduler shard
+holds its own lease (``shard_lease_path``); the supervisor's lease waits
+for the fleet supervisor.
 """
 from __future__ import annotations
 
@@ -35,6 +38,15 @@ _log = logging.getLogger(__name__)
 
 class EpochFencedError(RuntimeError):
     """A writer bound to a superseded lease epoch attempted a commit."""
+
+
+def shard_lease_path(data_dir: str, shard_id: Optional[int]) -> str:
+    """Lease-file path for one scheduler shard: every shard holds its own
+    lease (distinct path, independent epoch sequence) over the shared
+    data directory; ``None`` is the unsharded writer's lease."""
+    from ..parallel.topology import shard_lease_name
+
+    return os.path.join(data_dir, shard_lease_name(shard_id))
 
 
 def solver_lease_path(data_dir: str) -> str:
@@ -228,6 +240,17 @@ class FileLease:
             if not self._verify_owner():
                 return False
             return self._epoch_floor() <= self.epoch
+
+    def ensure_epoch_at_least(self, epoch: int) -> None:
+        """Advance the held epoch to ``epoch`` (recovery found WAL frames
+        stamped at or above it, e.g. the lease file was deleted while the
+        WAL survived), serialized against the renewer."""
+        with self._epoch_lock:
+            if self.epoch == 0 or epoch <= self.epoch:
+                return
+            self.epoch = epoch
+            self._write()
+            self._bump_epoch_floor(epoch)
 
     def release(self) -> None:
         """Unlink the lease only if it still carries our owner and epoch."""

@@ -1,22 +1,30 @@
-"""In-memory document store.
+"""Document store: collections of plain dicts, and the journal hooks
+the durable engine writes its WAL through.
 
-A copy of the in-memory part of ``evergreen_tpu/storage/store.py``:
-``Collection`` and ``Store`` keep the same semantics, so a tick's gather
-reads the same documents in the same order from either package's store.
-``find`` returns the stored documents themselves, in insertion order,
-without copying them (``snapshot`` is the deep-copying read); an upsert
-of an existing id keeps its place. The delta persister's write shapes
+A copy of ``evergreen_tpu/storage/store.py``: ``Collection`` and
+``Store`` keep the same semantics, so a tick's gather reads the same
+documents in the same order from either package's store. ``find``
+returns the stored documents themselves, in insertion order, without
+copying them (``snapshot`` is the deep-copying read); an upsert of an
+existing id keeps its place. The delta persister's write shapes
 (``bulk_update``, ``patch``, ``patch_list``, ``splice_queue``) apply
 their changes as the JAX store's do. Every write path notifies the
 collection's change listeners (``add_listener``) inside the collection
 lock, at the same points as the JAX store; the TickCache
-(``scheduler/cache.py``) tracks its dirty sets through them. Of the
-durable store's hooks, the sharded plane's handoff calls ``begin_tick``,
-``end_tick`` and ``heal_durability`` and reads ``fenced``: on the
-in-memory store they do nothing, as in the JAX package. The rest (the
-write journal, the asynchronous commit, ``assert_not_fenced``,
-``apply_wal_record``) waits for a durable store. ``shard_id`` names the
-store's shard in a sharded plane (None outside one).
+(``scheduler/cache.py``) tracks its dirty sets through them.
+
+``Collection(name, journal=fn)`` hands ``fn`` one record per write,
+still under the collection lock, so a WAL's order is its apply order:
+``p`` a full-document put, ``pm`` a batch of puts, ``um`` one field
+update over many ids, ``u`` a field patch (with ``pv``, the doc version
+it expects, when it advances ``v``), ``pl`` a sparse list patch, ``qs``
+a queue splice, ``r`` a removal and ``x`` a clear — the JAX package's
+records, key for key. ``apply_wal_record`` replays one of them (or a
+group frame ``g``) into a store. The durable engine
+(``storage/durable.py``) overrides the base ``Store``'s no-op hooks
+(``begin_tick``, ``end_tick``, ``end_tick_async``, ``sync_persist``,
+``heal_durability``, ``assert_not_fenced``, ``fenced``). ``shard_id``
+names the store's shard in a sharded plane (None outside one).
 
 Thread-safety: a single re-entrant lock guards each collection. The scheduler
 tick itself never blocks on this lock for long — the snapshot builder reads
@@ -31,11 +39,18 @@ from ..utils import lockcheck as _lockcheck
 
 
 class Collection:
-    """A named map of id -> document (a plain dict)."""
+    """A named map of id -> document (a plain dict).
 
-    def __init__(self, name: str) -> None:
+    ``journal`` (optional) receives one record per write while the
+    collection lock is held. All mutation goes through this API (an
+    in-place edit of a document returned by ``get``/``find`` would dodge
+    the journal), and a ``mutate`` callback must not touch other
+    collections (the compactor takes collection locks in bulk)."""
+
+    def __init__(self, name: str, journal=None) -> None:
         self.name = name
         self._docs: Dict[str, dict] = {}
+        self._journal = journal
         self._lock = _lockcheck.make_rlock("store.collection")
         #: change listeners: fn(doc_id) called after any write touching the
         #: doc. Callbacks MUST be trivial (set a dirty flag) — they run
@@ -56,6 +71,14 @@ class Collection:
         for fn in self._listeners:
             fn(doc_id)
 
+    def _log_put(self, doc: dict) -> None:
+        if self._journal is not None:
+            self._journal({"c": self.name, "o": "p", "d": doc})
+
+    def _log_remove(self, doc_id: str) -> None:
+        if self._journal is not None:
+            self._journal({"c": self.name, "o": "r", "i": doc_id})
+
     # -- basic CRUD --------------------------------------------------------- #
 
     def insert(self, doc: dict) -> None:
@@ -67,6 +90,7 @@ class Collection:
             if self._key_order_cache is not None:
                 self._key_order_cache[doc_id] = self._order_rank
             self._order_rank += 1
+            self._log_put(doc)
             self._notify(doc_id)
 
     def upsert(self, doc: dict) -> None:
@@ -76,6 +100,7 @@ class Collection:
                     self._key_order_cache[doc["_id"]] = self._order_rank
                 self._order_rank += 1
             self._docs[doc["_id"]] = doc
+            self._log_put(doc)
             self._notify(doc["_id"])
 
     def insert_many(self, docs: Iterable[dict]) -> None:
@@ -91,6 +116,10 @@ class Collection:
                 if self._key_order_cache is not None:
                     self._key_order_cache[doc["_id"]] = self._order_rank
                 self._order_rank += 1
+            # journal after applying: an inline auto-compaction the
+            # append triggers must already snapshot the batch
+            if docs and self._journal is not None:
+                self._journal({"c": self.name, "o": "pm", "ds": docs})
             for doc in docs:
                 self._notify(doc["_id"])
 
@@ -127,6 +156,7 @@ class Collection:
             if gone:
                 if self._key_order_cache is not None:
                     self._key_order_cache.pop(doc_id, None)
+                self._log_remove(doc_id)
                 self._notify(doc_id)
             return gone
 
@@ -137,6 +167,7 @@ class Collection:
                 del self._docs[i]
                 if self._key_order_cache is not None:
                     self._key_order_cache.pop(i, None)
+                self._log_remove(i)
                 self._notify(i)
             return len(doomed)
 
@@ -146,6 +177,8 @@ class Collection:
             self._docs.clear()
             self._key_order_cache = None
             self._order_rank = 0
+            if ids and self._journal is not None:
+                self._journal({"c": self.name, "o": "x"})
             for i in ids:
                 self._notify(i)
 
@@ -183,6 +216,7 @@ class Collection:
                 if doc.get(key) != val:
                     return False
             doc.update(update)
+            self._log_put(doc)
             self._notify(doc_id)
             return True
 
@@ -192,6 +226,7 @@ class Collection:
             if doc is None:
                 return False
             doc.update(update)
+            self._log_put(doc)
             self._notify(doc_id)
             return True
 
@@ -204,6 +239,7 @@ class Collection:
                 if pred(doc):
                     doc.update(update)
                     n += 1
+                    self._log_put(doc)
                     self._notify(doc["_id"])
             return n
 
@@ -215,8 +251,8 @@ class Collection:
     ) -> int:
         """Apply the SAME ``fields`` to every existing doc in ``ids``
         (optionally gated per-doc by ``only_if``, checked under the lock)
-        in one lock acquisition — the tick's task stamping. Returns the
-        number of docs updated."""
+        in one lock acquisition and one journal record (``um``) — the
+        tick's task stamping. Returns the number of docs updated."""
         with self._lock:
             hit: List[str] = []
             for doc_id in ids:
@@ -225,19 +261,32 @@ class Collection:
                     continue
                 doc.update(fields)
                 hit.append(doc_id)
+            # journal after applying (as insert_many)
+            if hit and self._journal is not None:
+                self._journal(
+                    {"c": self.name, "o": "um", "is": hit, "f": fields}
+                )
             for doc_id in hit:
                 self._notify(doc_id)
             return len(hit)
 
     def patch(self, doc_id: str, fields: Dict[str, Any]) -> bool:
-        """Field-level doc update — the delta persister's column patch
-        for big docs whose dynamic columns churn while the bulk stays put
-        (queue docs: sort_value/dependencies_met vs 50k rows)."""
+        """Field-level doc update that journals only the patched fields
+        (``u``) — the delta persister's column patch for big docs whose
+        dynamic columns churn while the bulk stays put (queue docs:
+        sort_value/dependencies_met vs 50k rows). When ``fields`` advances
+        the version ``v``, the record carries the expected previous
+        version so replay drops a patch whose base write was lost."""
         with self._lock:
             doc = self._docs.get(doc_id)
             if doc is None:
                 return False
+            rec = {"c": self.name, "o": "u", "i": doc_id, "f": fields}
+            if "v" in fields:
+                rec["pv"] = doc.get("v")
             doc.update(fields)
+            if self._journal is not None:
+                self._journal(rec)
             self._notify(doc_id)
             return True
 
@@ -247,10 +296,12 @@ class Collection:
         elems: Dict[str, Any],
         fields: Optional[Dict[str, Any]] = None,
     ) -> bool:
-        """Sparse element-level patch of list fields: ``elems`` maps field
-        name → ``(indices, values)`` applied positionally; ``fields`` are
+        """Sparse element-level patch of list fields (``pl``): ``elems``
+        maps field name → ``(indices, values)`` applied positionally, so
+        the journal carries only the changed entries; ``fields`` are
         whole-field patches applied with them (version bump,
-        generated_at). Refuses (False) when an index is past its list."""
+        generated_at), with ``patch``'s version guard. Refuses (False)
+        when an index is past its list."""
         with self._lock:
             doc = self._docs.get(doc_id)
             if doc is None:
@@ -259,12 +310,19 @@ class Collection:
                 lst = doc.get(name)
                 if lst is None or (idx and idx[-1] >= len(lst)):
                     return False  # base shape mismatch: caller rewrites
+            rec = {"c": self.name, "o": "pl", "i": doc_id, "el": elems}
+            if fields:
+                rec["f"] = fields
+                if "v" in fields:
+                    rec["pv"] = doc.get("v")
             for name, (idx, vals) in elems.items():
                 lst = doc[name]
                 for i, v in zip(idx, vals):
                     lst[i] = v
             if fields:
                 doc.update(fields)
+            if self._journal is not None:
+                self._journal(rec)
             self._notify(doc_id)
             return True
 
@@ -277,8 +335,9 @@ class Collection:
         elems: Optional[Dict[str, Any]] = None,
     ) -> bool:
         """Row-level splice of a queue doc's three aligned columns
-        (``rows`` / ``sort_value`` / ``dependencies_met``) — the
-        churn-tick write shape of the delta persister. ``rm_idx``
+        (``rows`` / ``sort_value`` / ``dependencies_met``), journaling
+        only the delta (``qs``) — the churn-tick write shape of the delta
+        persister. ``rm_idx``
         (ascending, pre-splice indices) removes rows; ``inserts`` is
         ``[(idx, row, sort, met), ...]`` with ``idx`` the position in the
         FINAL list (ascending); ``fields`` are whole-field patches (order
@@ -298,6 +357,16 @@ class Collection:
                 return False
             if rm_idx and (rm_idx[-1] >= n or rm_idx[0] < 0):
                 return False
+            rec = {
+                "c": self.name, "o": "qs", "i": doc_id,
+                "rm": rm_idx, "ins": inserts,
+            }
+            if fields:
+                rec["f"] = fields
+                if "v" in fields:
+                    rec["pv"] = doc.get("v")
+            if elems:
+                rec["el"] = elems
             for i in reversed(rm_idx):
                 del rows[i]
                 del sv[i]
@@ -313,6 +382,8 @@ class Collection:
                         lst[i] = v
             if fields:
                 doc.update(fields)
+            if self._journal is not None:
+                self._journal(rec)
             self._notify(doc_id)
             return True
 
@@ -323,6 +394,7 @@ class Collection:
             if doc is None:
                 return False
             fn(doc)
+            self._log_put(doc)
             self._notify(doc_id)
             return True
 
@@ -330,6 +402,60 @@ class Collection:
         """Deep-copied point-in-time view (for the snapshot builder)."""
         with self._lock:
             return copy.deepcopy(list(self._docs.values()))
+
+
+def apply_wal_record(store: "Store", rec: dict, skip=()) -> None:
+    """Replay one journal record into a store — the WAL op decoder of
+    crash recovery (``storage/durable.py``). ``skip`` filters
+    collections, applied per group member too. A ``u``/``pl``/``qs``
+    record whose document is gone, or whose ``pv`` is not the
+    document's version (its base write was lost with a torn group
+    frame), is dropped rather than applied to the wrong document; ``g``
+    is a tick's group frame, whose members replay in order."""
+    op = rec["o"]
+    if op == "g":
+        for sub in rec["rs"]:
+            if sub.get("c") not in skip:
+                apply_wal_record(store, sub, skip)
+        return
+    coll = store.collection(rec["c"])
+    if op == "p":
+        coll.upsert(rec["d"])
+    elif op == "pm":
+        for d in rec["ds"]:
+            coll.upsert(d)
+    elif op == "u":
+        doc = coll.get(rec["i"])
+        if doc is None:
+            return  # base write lost (dropped group): skip the patch
+        if "pv" in rec and doc.get("v") != rec["pv"]:
+            return  # version gap: the patch's base is not this doc
+        coll.update(rec["i"], rec["f"])
+    elif op == "um":
+        coll.bulk_update(rec["is"], rec["f"])
+    elif op == "pl":
+        doc = coll.get(rec["i"])
+        if doc is None:
+            return
+        f = rec.get("f")
+        if f and "pv" in rec and doc.get("v") != rec["pv"]:
+            return
+        coll.patch_list(rec["i"], rec["el"], f)
+    elif op == "qs":
+        doc = coll.get(rec["i"])
+        if doc is None:
+            return
+        f = rec.get("f")
+        if f and "pv" in rec and doc.get("v") != rec["pv"]:
+            return
+        coll.splice_queue(
+            rec["i"], rec["rm"], [tuple(i) for i in rec["ins"]],
+            f, rec.get("el"),
+        )
+    elif op == "r":
+        coll.remove(rec["i"])
+    elif op == "x":
+        coll.clear()
 
 
 class Store:
@@ -369,6 +495,8 @@ class Store:
         return self.collection(name)
 
     # -- durability hooks (no-ops for the in-memory engine) ------------------ #
+    # The tick calls these unconditionally; the durable engine overrides
+    # them with the WAL's group commit.
 
     def begin_tick(self) -> None:
         """Open a tick-scoped journal group (durable engine only)."""
@@ -376,12 +504,23 @@ class Store:
     def end_tick(self) -> None:
         """Commit the tick's journal group synchronously."""
 
+    def end_tick_async(self) -> None:
+        """Commit the tick's journal group on a background flusher."""
+
+    def sync_persist(self) -> None:
+        """Barrier for async commits; raises a deferred write error."""
+
     def heal_durability(self) -> bool:
         """Best-effort repair after a failed group commit."""
         return True
 
-    #: split-brain fence state; an in-memory store can never be superseded
+    #: split-brain fence state (the durable engine checks its lease
+    #: epoch); an in-memory store can never be superseded
     fenced: bool = False
+
+    def assert_not_fenced(self, read_lease_file: bool = False) -> None:
+        """Raise EpochFencedError when this writer's lease epoch was
+        superseded (durable engine only)."""
 
 
 _GLOBAL_STORE: Optional[Store] = None
@@ -406,7 +545,8 @@ def reset_global_store() -> Store:
 
 
 def set_global_store(store: Store) -> Store:
-    """Install a specific store as the process-wide default."""
+    """Install a specific store (e.g. a DurableStore) as the process-wide
+    default."""
     global _GLOBAL_STORE
     with _GLOBAL_LOCK:
         _GLOBAL_STORE = store

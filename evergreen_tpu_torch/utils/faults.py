@@ -23,6 +23,16 @@ firing is counted in ``faults_fired_total{seam}`` and logged. Seams:
                       deletions (scheduler/sharded_plane.py)
   ``handoff.record``  between a handoff's release and its prime
   ``handoff.prime``   between a handoff's prime and its done-mark
+  ``wal.append``      a per-op WAL append (storage/durable.py); ``torn``
+                      writes half the line and raises, ``short`` writes
+                      half and returns, ``bitrot`` flips a byte after
+                      the write
+  ``wal.commit``      a tick's group-frame write, once per frame, with
+                      the same directives
+  ``wal.fence``       the commit boundary, just before the fence check
+  ``snapshot.write``  mid-write of a checkpoint's snapshot (``short``
+                      truncates it after the rename, ``bitrot`` flips a
+                      byte of it)
 
 Fault kinds: ``raise`` (the configured exception, default FaultError),
 ``hang``/``delay`` (sleep ``delay_s``), ``crash`` (``os._exit(86)``),

@@ -2,7 +2,9 @@
 process-wide registry.
 
 The part of ``evergreen_tpu/utils/metrics.py`` the tick, the capacity
-plane, the overload ladder, the breakers and the fault seams use: instruments are registered once with a
+plane, the overload ladder, the breakers, the fault seams and the
+durable store (its WAL counters, flush histogram and backlog gauge, under
+the JAX package's names) use: instruments are registered once with a
 help string and labels from a fixed vocabulary, label sets are bounded
 (past ``DEFAULT_MAX_SERIES`` combinations new ones fold into one ``other``
 series), histograms are fixed-bucket, and ``state``/``snapshot_delta``

@@ -12,16 +12,17 @@ Fused signals (gauges, pushed with ``observe``):
                         tick; also derived live from the last tick start,
                         so a stalled tick shows a growing lag)
   ``queue_pending``     job-queue pending-set depth
+  ``wal_backlog``       frames waiting on the durable store's async WAL
+                        flusher (read from ``store.flush_backlog()`` at
+                        each evaluation; 0 on the in-memory store)
   ``outbox_depth``      undelivered notification-outbox rows
-  ``store_latency_ms``  EWMA of the store's commit latency
+  ``store_latency_ms``  EWMA (weight 0.4 on the new sample) of the tick's
+                        WAL group commit, fed by ``run_tick``
   ``api_rps``           request rate over the HTTP surface
 
-The port feeds ``tick_lag_s`` only: it has no job queue, outbox, durable
-store or HTTP surface, so the other signals read 0 unless a caller
-pushes them, as they read on an idle in-memory JAX store. The JAX
-package's ``wal_backlog`` signal reads the durable store's flush backlog,
-which the in-memory store does not have: it is always 0 there and is
-left out here.
+The port has no job queue, outbox or HTTP surface, so ``queue_pending``,
+``outbox_depth`` and ``api_rps`` read 0 unless a caller pushes them, as
+they read on an idle JAX store.
 
 Levels (monotone ladder; higher sheds strictly more): GREEN, YELLOW, RED,
 BLACK. Upward transitions apply immediately; downward transitions need
@@ -150,11 +151,12 @@ class LoadMonitor:
 
     # -- gauge intake ---------------------------------------------------- #
 
-    def observe(self, name: str, value: float) -> None:
-        """Record a gauge sample (it replaces the previous one). The JAX
-        package's EWMA blend serves its commit-latency feed, which the
-        port does not have."""
+    def observe(self, name: str, value: float, ewma: float = 0.0) -> None:
+        """Record a gauge sample. ``ewma`` > 0 blends it with the prior
+        value (the weight of the new sample); 0 overwrites."""
         with self._lock:
+            if ewma > 0.0 and name in self._gauges:
+                value = ewma * value + (1.0 - ewma) * self._gauges[name]
             self._gauges[name] = value
         self._maybe_auto_evaluate()
 
@@ -201,12 +203,21 @@ class LoadMonitor:
                 gauges["tick_lag_s"] = max(
                     gauges.get("tick_lag_s", 0.0), live
                 )
+        # the durable store's flusher backlog: a storm that outruns the
+        # disk shows up here first
+        backlog = getattr(self.store, "flush_backlog", lambda: 0)()
+        gauges["wal_backlog"] = float(backlog)
+        with self._lock:
+            self._gauges["wal_backlog"] = float(backlog)
         per_signal = {
             "tick_lag_s": self._signal_level(
                 gauges.get("tick_lag_s", 0.0), cfg.tick_lag_levels_s
             ),
             "queue_pending": self._signal_level(
                 gauges.get("queue_pending", 0.0), cfg.queue_pending_levels
+            ),
+            "wal_backlog": self._signal_level(
+                gauges.get("wal_backlog", 0.0), cfg.wal_backlog_levels
             ),
             "outbox_depth": self._signal_level(
                 gauges.get("outbox_depth", 0.0), cfg.outbox_depth_levels

@@ -480,6 +480,84 @@ def test_card_warm_tick_raises_a_failed_mirror_upload(cuda_device, monkeypatch):
     assert store.collection("task_queues").find() == []
 
 
+@pytest.mark.cuda
+def test_card_durable_async_tick_writes_the_cpu_documents(cuda_device, tmp_path,
+                                                          monkeypatch):
+    """The service's tick on a ``DurableStore`` under a lease
+    (``use_cache=True, async_persist=True``) on the card and on the CPU,
+    two ticks with a churn: the same documents, one WAL group frame a
+    tick with the same records; then the card store's lease is stolen,
+    and its fenced tick launches no kernel, writes no WAL byte and drops
+    the resident plane and the mirror's buffers."""
+    import json
+    import os
+    import time
+
+    from evergreen_tpu_torch.models import distro as distro_mod
+    from evergreen_tpu_torch.models import host as host_mod
+    from evergreen_tpu_torch.models import task as task_mod
+    from evergreen_tpu_torch.scheduler import resident, wrapper
+    from evergreen_tpu_torch.storage.durable import WAL_FILE, DurableStore
+    from evergreen_tpu_torch.storage.lease import FileLease
+
+    distros, tbd, hbd, _, _ = generate_problem(12, 2_000, seed=6)
+    stores, leases = {}, {}
+    for key in ("cuda", "cpu"):
+        d = str(tmp_path / key)
+        lease = leases[key] = FileLease(os.path.join(d, "writer.lease"), ttl_s=60.0)
+        assert lease.try_acquire()
+        store = stores[key] = DurableStore(d, lease=lease)
+        for dist in distros:
+            distro_mod.insert(store, dist)
+        task_mod.insert_many(store, [t for ts in tbd.values() for t in ts])
+        for hs in hbd.values():
+            host_mod.insert_many(store, hs)
+
+    def frames(key):
+        with open(os.path.join(str(tmp_path / key), WAL_FILE)) as fh:
+            recs = [json.loads(line) for line in fh]
+        return [[{k: v for k, v in r.items() if k != "d" or r["c"] != "events"}
+                 for r in f["rs"]] for f in recs if f["o"] == "g"]
+
+    opts = wrapper.TickOptions(use_cache=True, async_persist=True,
+                               create_intent_hosts=False)
+    real_time = time.time
+    monkeypatch.setattr(time, "time", lambda: NOW)
+    for k, now in enumerate((NOW, NOW + 15)):
+        results = {}
+        for key, store in stores.items():
+            if k:
+                tasks = store.collection("tasks")
+                for doc in tasks.find()[::23]:
+                    tasks.update(doc["_id"], {"status": "success"})
+            before = fused_distro_stats.launches
+            results[key] = wrapper.run_tick(store, opts, now=now,
+                                            device=None if key == "cuda" else "cpu")
+            if key == "cuda":
+                assert fused_distro_stats.launches - before == 1
+            store.sync_persist()
+        assert results["cuda"].queues == results["cpu"].queues
+        assert results["cuda"].degraded == "" and results["cuda"].planner_used == "tpu"
+        for name in ("task_queues", "tasks"):
+            assert stores["cuda"].collection(name).find() == (
+                stores["cpu"].collection(name).find()), name
+    assert len(frames("cuda")) == 2 and frames("cuda") == frames("cpu")
+    # the steal reads the wall clock against the lease's stamp
+    monkeypatch.setattr(time, "time", real_time)
+    thief = FileLease(leases["cuda"].path, ttl_s=60.0)
+    thief.ttl_s = -1.0
+    assert thief.try_acquire()
+    wal = os.path.join(str(tmp_path / "cuda"), WAL_FILE)
+    size = os.path.getsize(wal)
+    launches = (fused_distro_stats.launches, segment_sum.launches)
+    res = wrapper.run_tick(stores["cuda"], opts, now=NOW + 30)
+    assert res.degraded == "fenced" and res.queues == {}
+    assert (fused_distro_stats.launches, segment_sum.launches) == launches
+    assert os.path.getsize(wal) == size
+    plane = resident.peek_resident_plane(stores["cuda"])
+    assert plane._pending_reason == "fenced" and plane._mirror._bufs is None
+
+
 def test_entry_points_need_a_card_unless_cpu(tmp_path):
     """``SolverService``, ``StackedSolveCache``, ``DeviceMirror.sync``
     and ``SolverClient``'s local fallback run on the card by default and

@@ -318,8 +318,8 @@ def test_tick_constants_match_the_jax_package():
             assert (t_i.kind, t_i.name, t_i.labelnames) == (
                 j_i.kind, j_i.name, j_i.labelnames), name
     # the port's options and result are the JAX ones less the fields of
-    # the parts it has not ported (durable store, tracing) and of the
-    # options no caller sets, with the same defaults
+    # the part it has not ported (tracing) and of the options no caller
+    # sets, with the same defaults
     for t_cls, j_cls in ((t_wrapper.TickOptions, j_wrapper.TickOptions),
                          (t_wrapper.TickResult, j_wrapper.TickResult)):
         j_fields = {f.name: f for f in dataclasses.fields(j_cls)}
@@ -331,8 +331,8 @@ def test_tick_constants_match_the_jax_package():
                 and f.default_factory() == j_f.default_factory()), f.name
     assert {f.name for f in dataclasses.fields(j_wrapper.TickOptions)} - {
         f.name for f in dataclasses.fields(t_wrapper.TickOptions)} == {
-        "async_persist", "planner_version", "underwater_unschedule",
-        "max_intent_hosts"}
+        "planner_version", "underwater_unschedule", "max_intent_hosts"}
+    assert t_wrapper.TickOptions().async_persist is j_wrapper.TickOptions().async_persist is False
     assert {f.name for f in dataclasses.fields(j_wrapper.TickResult)} - {
         f.name for f in dataclasses.fields(t_wrapper.TickResult)} == {"trace_id"}
     # what the port's tick fixes in place of those options
@@ -420,11 +420,63 @@ def test_sharded_plane_constants_match_the_jax_package():
     # the in-memory store's durability hooks are JAX's no-ops
     t_s, j_s = t_store.Store(), j_store.Store()
     assert (t_s.fenced, t_s.heal_durability(), t_s.begin_tick(),
-            t_s.end_tick()) == (j_s.fenced, j_s.heal_durability(),
-                                j_s.begin_tick(), j_s.end_tick())
+            t_s.end_tick(), t_s.end_tick_async(), t_s.sync_persist(),
+            t_s.assert_not_fenced(read_lease_file=True)) == (
+        j_s.fenced, j_s.heal_durability(), j_s.begin_tick(), j_s.end_tick(),
+        j_s.end_tick_async(), j_s.sync_persist(),
+        j_s.assert_not_fenced(read_lease_file=True))
     assert t_s.shard_id is None
     assert issubclass(t_lease.EpochFencedError, RuntimeError)
     assert t_lease.EpochFencedError.__mro__[1:] == j_lease.EpochFencedError.__mro__[1:]
+
+
+def test_durable_store_constants_match_the_jax_package():
+    """The durable store's file names, its constructor's and the durable
+    fleet's signatures and defaults, the lease helpers, the WAL stamp,
+    and the store's instruments (kind, name, labels, help) are the JAX
+    package's."""
+    from evergreen_tpu.scheduler import sharded_plane as j_plane
+    from evergreen_tpu.storage import durable as j_durable
+    from evergreen_tpu.storage import integrity as j_integrity
+    from evergreen_tpu.storage import lease as j_lease
+
+    from evergreen_tpu_torch.scheduler import sharded_plane as t_plane
+    from evergreen_tpu_torch.storage import durable as t_durable
+    from evergreen_tpu_torch.storage import integrity as t_integrity
+    from evergreen_tpu_torch.storage import lease as t_lease
+
+    for name in ("SNAPSHOT_FILE", "WAL_FILE", "SNAPSHOT_META_SUFFIX"):
+        assert getattr(t_durable, name) == getattr(j_durable, name), name
+
+    def sig(fn):
+        return [(p.name, p.kind, p.default)
+                for p in inspect.signature(fn).parameters.values()]
+
+    for t_fn, j_fn in (
+            (t_durable.DurableStore.__init__, j_durable.DurableStore.__init__),
+            (t_plane.ShardedScheduler.build.__func__,
+             j_plane.ShardedScheduler.build.__func__),
+            (t_plane.open_fleet, j_plane.open_fleet),
+            (t_lease.shard_lease_path, j_lease.shard_lease_path),
+            (t_lease.FileLease.ensure_epoch_at_least,
+             j_lease.FileLease.ensure_epoch_at_least)):
+        assert sig(t_fn) == sig(j_fn), j_fn.__qualname__
+    for k in (None, 0, 3):
+        assert t_lease.shard_lease_path("/d", k) == j_lease.shard_lease_path("/d", k)
+    line = '{"c":"tasks","o":"p","d":{"_id":"t1"},"s":7}'
+    assert t_integrity.stamp_wal_line(line) == j_integrity.stamp_wal_line(line)
+    # JAX stamps every WAL line by default; the port always does, with no
+    # switch (the WAL bytes themselves are held equal in test_torch_durable)
+    assert j_integrity.wal_crc_enabled() is True
+    assert not hasattr(t_integrity, "set_wal_crc_enabled")
+    assert not hasattr(t_integrity, "wal_crc_enabled")
+    for name in ("WAL_STALE_FRAMES_DROPPED", "LEASE_FENCED", "WAL_FLUSH_MS",
+                 "WAL_FLUSH_BACKLOG", "WAL_CORRUPT_FRAMES", "WAL_ENOSPC_SHEDS",
+                 "SNAPSHOT_QUARANTINED", "STORAGE_REBUILDS"):
+        t_i, j_i = getattr(t_durable, name), getattr(j_durable, name)
+        assert (t_i.kind, t_i.name, t_i.labelnames, t_i.help) == (
+            j_i.kind, j_i.name, j_i.labelnames, j_i.help), name
+        assert getattr(t_i, "legacy", None) == getattr(j_i, "legacy", None), name
 
 
 def test_no_port_source_line_imports_jax():

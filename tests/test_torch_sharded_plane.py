@@ -663,3 +663,167 @@ def test_sharded_result_properties():
     assert (r.n_tasks, r.n_distros, r.degraded, r.solve_mode) == (0, 0, {}, "local")
     assert dataclasses.asdict(r).keys() == dataclasses.asdict(
         j_plane.ShardedTickResult(results={})).keys()
+
+
+# --------------------------------------------------------------------------- #
+# the durable fleet: one DurableStore per shard in one directory
+# --------------------------------------------------------------------------- #
+
+#: the cron front end's round options (units/crons.py): async commits
+SERVICE_ROUND = dict(use_cache=True, async_persist=True)
+#: short shard leases, so a reopened copy steals them within a second
+FLEET_TTL_S = 0.3
+#: the wall clock, for the lease steal (``world`` fixes ``time.time``)
+_REAL_TIME = time.time
+
+
+def make_durable_plane(pkg, docs, n, data_dir, **kw):
+    """``pkg``'s durable plane over ``n`` shard DurableStores in
+    ``data_dir``, seeded as ``make_plane`` seeds the in-memory one."""
+    m = PKG[pkg]
+    src = m["store"].Store()
+    for coll, ds in docs.items():
+        src.collection(coll).insert_many(copy.deepcopy(ds))
+    if pkg == "port":
+        kw.setdefault("device", "cpu")
+    plane = m["plane"].ShardedScheduler.build(
+        n, data_dir=str(data_dir), lease_ttl_s=FLEET_TTL_S,
+        tick_opts=m["wrapper"].TickOptions(use_cache=True), stacked="never",
+        rebalance_enabled=False, **kw)
+    plane.seed_partition(src)
+    for s in plane.stores:
+        s.collection("config").insert_many(copy.deepcopy(docs.get("config", [])))
+    return plane
+
+
+def service_rounds(plane, pkg, script):
+    opts = PKG[pkg]["wrapper"].TickOptions(**SERVICE_ROUND)
+    out = []
+    for now, before in script:
+        if before is not None:
+            for s in plane.stores:
+                before(s)
+        res = plane.tick(now=now, opts=opts)
+        out.append((round_summary(res), res.solve_mode, plane_docs(plane)))
+    return out
+
+
+def disk_docs(pkg, data_dir, n):
+    """The documents each shard's segment recovers to (opened without a
+    lease, read-only use), canonicalised; queue rows come back as lists."""
+    import json
+
+    from evergreen_tpu.storage import durable as j_durable
+    from evergreen_tpu_torch.storage import durable as t_durable
+
+    durable = j_durable if pkg == "jax" else t_durable
+    out = []
+    for k in range(n):
+        s = durable.DurableStore(str(data_dir), shard_id=k)
+        out.append({c: [canon(d) for d in s.collection(c).find()] for c in COLLECTIONS})
+        s._journal.close()
+    return json.loads(json.dumps(out))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_durable_fleet_matches_jax(n, tmp_path, world, planes):
+    """``build(n, data_dir=...)``: one DurableStore per shard, each under
+    its own lease and WAL segment. Three rounds with the round options
+    of the service (``async_persist``): every shard store holds the JAX
+    fleet's documents after every round, each segment recovers to them,
+    and ``close()`` releases the leases."""
+    import json
+    import os
+
+    from evergreen_tpu_torch.storage.durable import fleet_segment_ids
+
+    docs = generated(n, n_distros=3 * n, n_tasks=240 * n, capacity=True)
+    runs, dirs = {}, {}
+    for pkg in ("jax", "port"):
+        world()
+        dirs[pkg] = tmp_path / pkg
+        plane = make_durable_plane(pkg, docs, n, dirs[pkg])
+        runs[pkg] = service_rounds(plane, pkg, THREE_ROUNDS)
+        assert [s.epoch for s in plane.stores] == [1] * n
+        assert fleet_segment_ids(str(dirs[pkg])) == list(range(n))
+        for s in plane.stores:
+            s.sync_persist()
+        assert disk_docs(pkg, dirs[pkg], n) == json.loads(json.dumps(runs[pkg][-1][2]))
+        plane.close()
+        assert not [f for f in os.listdir(dirs[pkg]) if f.endswith(".lease")]
+    for k, ((js, jm, jd), (ts, tm, td)) in enumerate(zip(runs["jax"], runs["port"])):
+        assert ts == js, k
+        assert tm == jm == "local"
+        assert_same_docs(td, jd, f"round {k}")
+    assert runs["port"][0][0]["intents"], "no intents were created"
+
+
+def test_open_fleet_after_a_crash_mid_handoff_reconciles_like_jax(
+        tmp_path, world, planes):
+    """A crash between a handoff's release and its prime (a copy of the
+    directory taken at the ``handoff.record`` seam, the plane still
+    open): ``open_fleet`` on the copy steals the stale shard leases,
+    replays each segment, and reconciles the released record — the
+    target owns the group, the record is done — as JAX's does; the next
+    round writes JAX's documents."""
+    import shutil
+
+    docs = generated(21, n_distros=8, n_tasks=480, capacity=True)
+    got = {}
+    for pkg in ("jax", "port"):
+        world()
+        m = PKG[pkg]
+        plane = make_durable_plane(pkg, docs, 2, tmp_path / pkg)
+        service_rounds(plane, pkg, THREE_ROUNDS[:1])
+        did = first_distro(plane, 0)
+        crashed = tmp_path / f"{pkg}-crashed"
+        f = m["faults"]
+        f.install(f.FaultPlan().at("handoff.record", 0, f.Fault(
+            "call", fn=lambda: shutil.copytree(tmp_path / pkg, crashed))))
+        try:
+            plane.migrate(did, 1, now=NOW + 1)
+        finally:
+            f.uninstall()
+        plane.close()
+        kw = dict(lease_ttl_s=FLEET_TTL_S,
+                  tick_opts=m["wrapper"].TickOptions(use_cache=True),
+                  stacked="never", rebalance_enabled=False)
+        if pkg == "port":
+            kw["device"] = "cpu"
+        with pytest.MonkeyPatch.context() as mp:
+            # the crashed holders' leases carry the fixed clock's stamp:
+            # on the wall clock they are stale, and open_fleet steals them
+            mp.setattr(time, "time", _REAL_TIME)
+            reopened = m["plane"].open_fleet(str(crashed), 2, **kw)
+        planes.append(reopened)
+        assert [s.epoch for s in reopened.stores] == [2, 2]
+        assert reopened.owner_of(did) == 1
+        assert m["plane"].fleet_owner_violations(reopened.stores) == []
+        recs = reopened.stores[0].collection("shard_handoffs").find()
+        assert [r["state"] for r in recs] == ["done"]
+        after = service_rounds(reopened, pkg, [(NOW + 15, churn(3))])
+        got[pkg] = (after[0][0], plane_docs(reopened), dict(reopened.topology.overrides))
+    assert got["port"][0] == got["jax"][0]
+    assert_same_docs(got["port"][1], got["jax"][1])
+    assert got["port"][2] == got["jax"][2]
+
+
+def test_a_partial_fleet_releases_what_it_took(tmp_path):
+    """A fleet whose shard 1 cannot take its lease (held by someone
+    else) fails to build and leaves shard 0's lease free again."""
+    import os
+
+    from evergreen_tpu_torch.storage.lease import FileLease, shard_lease_path
+
+    other = FileLease(shard_lease_path(str(tmp_path), 1), ttl_s=60.0)
+    assert other.try_acquire()
+    real = FileLease.acquire
+    try:
+        FileLease.acquire = lambda self, timeout_s=None, poll_s=0.1: real(
+            self, timeout_s=0.2, poll_s=0.05)
+        with pytest.raises(TimeoutError, match="shard 1"):
+            t_plane.ShardedScheduler.build(2, data_dir=str(tmp_path), device="cpu")
+    finally:
+        FileLease.acquire = real
+    assert not os.path.exists(shard_lease_path(str(tmp_path), 0))
+    assert FileLease(shard_lease_path(str(tmp_path), 0)).try_acquire()
