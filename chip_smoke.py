@@ -34,8 +34,9 @@ raises and exits non-zero):
    steps, integer outputs equal to the CPU stack, and both kernels held
    against their plain versions on each block as in phase 2; then one
    round served by a ``SolverService`` on the card to four
-   ``SolverClient``s in ``spawn`` worker processes and seven to clients
-   in threads, every
+   ``SolverClient``s in ``spawn`` worker processes, three more to them
+   and three to clients in threads (seven each until phase 11 needed the
+   time), every
    round and client "stacked", every block byte-identical to the
    in-process stack, each round launching 4 ``fused_distro_stats`` and
    4 × (5 + 48) ``segment_sum``; ``serve_round`` wall times, beside the
@@ -87,12 +88,12 @@ raises and exits non-zero):
    ``stacked="always"`` (every block of a round in one stacked solve),
    (b) on the card with ``stacked="auto"`` (local on one card: each
    shard ticks through its own resident plane and mirror), (c) on the
-   CPU with ``stacked="never"`` — for five rounds (prime, churn, quiet,
-   shard 0 held at YELLOW so one affinity group migrates, and the round
-   after the handoff, whose card planes tick under torch.profiler:
-   device busy time, idle share and the host's time in CUDA
-   synchronisation; two quiet rounds before the profiled one were cut
-   to make room for phase 10). After each round every shard store's
+   CPU with ``stacked="never"`` — for four rounds (prime, churn, shard
+   0 held at YELLOW so one affinity group migrates, and the round after
+   the handoff, whose card planes tick under torch.profiler: device busy
+   time, idle share and the host's time in CUDA synchronisation; two
+   quiet rounds before the profiled one were cut to make room for phase
+   10, and the quiet round before the YELLOW one for phase 11). After each round every shard store's
    documents are equal across the planes (intent and event ids
    canonicalised: which shard's tick draws which id depends on thread
    order), no document has two owners, the migrations are equal, plane
@@ -120,16 +121,40 @@ raises and exits non-zero):
    WAL is cut inside tick 4's frame reopens to (a) before tick 4; a
    thief takes (a)'s lease, (a)'s tick is ``"fenced"`` (no launch, no
    WAL byte, no document changed, the plane dropped), and the thief's
-   store ticks on the card beside a thief on a copy of (b)'s directory
-   on the CPU (held alike) and (b) and (c), then checkpoints; then a
+   store ticks on the card beside (b) and (c), held to them without the
+   queue documents' write stamps (its persister is fresh), then
+   checkpoints (the thief's CPU twin on a copy of (b)'s directory was
+   cut when phase 11 needed the time); then a
    durable fleet (``ShardedScheduler.build(4, data_dir=...,
    stacked="always")`` on the card, its modes held as plane (a)'s)
    against an in-memory CPU plane, four rounds (a handoff in the
-   third), two crash copies reopened by ``open_fleet`` on the card and
-   the CPU, and a fifth round, documents equal; prints every tick's
+   third), a crash copy reopened by ``open_fleet`` on the card (its CPU
+   twin was cut for phase 11's time), and a fifth round, documents
+   equal; prints every tick's
    phases with ``wal_commit``, the frame writes, the barrier waits, WAL
    bytes, replay, checkpoint and ``open_fleet`` ms;
-11. a JSON line of the kernels (launches: phases 7–10, by path; the
+11. the process-per-shard fleet (``process_fleet_phase``): config 3
+   seeded over four shard segments at epoch 0 (each shard a quarter of
+   phase 6's quota and intent budget) with a churn written without a
+   lease that each recovery step acts on (benchgen's phantom
+   ``running_task`` claims, tasks in flight on hosts with stale
+   heartbeats, gone or terminated, mock hosts building);
+   ``FleetSupervisor(..., solver="always")`` on the card spawns four
+   ``runtime/worker.py`` processes on it (lease, replay, recovery pass,
+   hello at epoch 1) and leads their stacked solves; six rounds with the
+   service's options: prime, two quiet rounds, ``migrate`` over the
+   control protocol, the round after it, shard 2 drained and SIGKILLed,
+   the watchdog's restart at epoch 2 (replay and recovery again), two
+   more rounds, ``stop(graceful=True)``. Checked: the epochs, each
+   recovery's counts against a CPU twin (the same sequence in-process in
+   a process of its own on a copy of the seeded directory), the modes
+   (``PROC_MODES``), the leader's launches per stacked block and each
+   worker's per local solve (its ``status`` counters, the killed worker's
+   read before the kill), every shard's documents against the twin's,
+   one owner per document, every lease released; prints the start, each
+   recovery, each round and shard tick, the leader's serves, the
+   takeover and the stop in ms;
+12. a JSON line of the kernels (launches: phases 7–11, by path; the
    other phases check theirs on lines of their own), the card's line,
    and the last line ``{"ok": true, "device": {...}}``.
 
@@ -164,10 +189,11 @@ FADD_CYCLES = 4
 SEED = 0
 CONFIG3 = (200, 50_000)
 #: shards of the stacked rounds, their capacity pages (steps; 0 = none)
-#: and the rounds served to workers in threads after the spawn round
+#: and the rounds served to the worker processes after the first and to
+#: clients in threads (three since phase 11 came: seven before)
 SHARDS = 4
 SHARD_PAGES = (48, 24, 0, 0)
-THREAD_ROUNDS = 7
+THREAD_ROUNDS = 3
 ROUND_TIMEOUT_S = 90.0
 SUM_RTOL = 1e-5
 #: the capacity relaxation (Newton steps with pow and division) and the
@@ -1702,14 +1728,14 @@ def service_phase(torch, np, problem, sm_mhz, card="cuda") -> dict:
 PLANE_SHARDS = 4
 PLANES = (("a", "cuda", "always"), ("b", "cuda", "auto"), ("c", "cpu", "never"))
 PLANE_COLLECTIONS = ("distros",) + TICK_COLLECTIONS + ("shard_handoffs",)
-PLANE_ROUNDS = ("1 (prime)", "2 (after churn)", "3 (quiet)",
-                "4 (shard 0 YELLOW)", "5 (after the handoff, profiled)")
-YELLOW_ROUND = 3
-PROFILED_ROUND = 4
+PLANE_ROUNDS = ("1 (prime)", "2 (after churn)", "3 (shard 0 YELLOW)",
+                "4 (after the handoff, profiled)")
+YELLOW_ROUND = 2
+PROFILED_ROUND = 3
 #: plane (a)'s modes: round 1 measures the shards' common dims (local);
 #: round 2 stacks, or is local only where round 1's intents grew some
 #: shard's dims past that floor ("grown"); every later round stacks
-PLANE_A_MODES = ("local", "stacked or grown", "stacked", "stacked", "stacked")
+PLANE_A_MODES = ("local", "stacked or grown", "stacked", "stacked")
 
 
 def canon_doc(doc):
@@ -2180,7 +2206,7 @@ def durable_phase(torch, np, problem, card="cuda", root=DATA_ROOT) -> dict:
     devices = {k: (card if on else "cpu") for k, on, _ in DURABLE_STORES}
     # the stores reopened later: (a)'s crash copy and its thief on the
     # card, and their comparators, (b)'s, on the CPU
-    devices.update({"replayed": card, "thief": card, "replayed-b": "cpu", "thief-b": "cpu"})
+    devices.update({"replayed": card, "thief": card, "replayed-b": "cpu"})
     log(f"durable tick: config 3 (seed {SEED}) less {distros[-1].id} in (a) a DurableStore "
         f"on the card, (b) one on the CPU, (c) the in-memory card store; leases "
         f"{LEASE_TTL_S} s, renewing; seeding ms (a) {seed_ms['a']:.1f}, (b) "
@@ -2432,15 +2458,10 @@ def durable_phase(torch, np, problem, card="cuda", root=DATA_ROOT) -> dict:
             stores.pop(key)._journal.close()
 
         # ---- the fence: a thief takes (a)'s lease ---------------------- #
-        # and a second thief a copy of (b)'s directory, for the first
-        # thief's comparator on the CPU: a store as fresh as its own
         leases["a"].stop_renewing()
-        stolen_b = crash_copy("b-stolen", dirs["b"])
         time.sleep(LEASE_TTL_S + 0.2)
-        thieves = {"thief": FileLease(leases["a"].path, ttl_s=LEASE_TTL_S),
-                   "thief-b": FileLease(os.path.join(stolen_b, "writer.lease"),
-                                        ttl_s=LEASE_TTL_S)}
-        for key, owner in (("thief", "a"), ("thief-b", "b")):
+        thieves = {"thief": FileLease(leases["a"].path, ttl_s=LEASE_TTL_S)}
+        for key, owner in (("thief", "a"),):
             lease = thieves[key]
             check(lease.try_acquire() and lease.epoch == leases[owner].epoch + 1,
                   f"{key} did not take the lease (epoch {lease.epoch})")
@@ -2460,23 +2481,20 @@ def durable_phase(torch, np, problem, card="cuda", root=DATA_ROOT) -> dict:
         log(f"durable tick {label} (a): degraded 'fenced' in {res.total_ms:.2f} ms, no "
             f"launch, WAL {wal0} B unchanged, documents unchanged, plane invalidated "
             f"'fenced' (mirror buffers dropped); thief epoch {thieves['thief'].epoch}")
-        for key, owner in (("thief", "a"), ("thief-b", "b")):
-            n = next(seqs[owner])
-            seqs[owner], seqs[key] = itertools.count(n), itertools.count(n)
+        n = next(seqs["a"])
+        seqs["a"], seqs["thief"] = itertools.count(n), itertools.count(n)
         open_ms = replay("thief", dirs["a"], lease=thieves["thief"])
-        open_b_ms = replay("thief-b", stolen_b, lease=thieves["thief-b"])
-        tick5 = {k: stores[k] for k in ("thief", "thief-b", "b", "c")}
+        tick5 = {k: stores[k] for k in ("thief", "b", "c")}
         step, starts = {}, {}
         for key, store in tick5.items():
             tick_checked(key, store, 4, now, label, step, starts)
-        wal_side(tick5, step, starts, label, [("thief", "thief-b")])
-        n_docs, restamped = same_docs(tick5, f"tick {label}", fresh=("thief", "thief-b"))
+        wal_side(tick5, step, starts, label, [])
+        n_docs, restamped = same_docs(tick5, f"tick {label}", fresh=("thief",))
         log(f"durable tick {label}: the thief's DurableStore (epoch {stores['thief'].epoch}) "
-            f"opened on (a)'s directory in {open_ms:.2f} ms, the CPU thief's on (b)'s "
-            f"copy in {open_b_ms:.2f} ms; {n_docs} documents equal in the thieves, (b) and "
-            f"(c), every field between the thieves, whose WAL records are equal; "
-            f"{restamped} queue documents differ in {QUEUE_STAMPS} alone between the "
-            f"thieves' fresh persisters and the live stores")
+            f"opened on (a)'s directory in {open_ms:.2f} ms; {n_docs} documents equal in "
+            f"the thief, (b) and (c) ({restamped} queue documents differ in "
+            f"{QUEUE_STAMPS} alone between the thief's fresh persister and the live "
+            f"stores)")
         report(label, step)
         stores["thief"].sync_persist()
         t0 = time.perf_counter()
@@ -2485,9 +2503,8 @@ def durable_phase(torch, np, problem, card="cuda", root=DATA_ROOT) -> dict:
         snap = os.path.join(dirs["a"], durable.SNAPSHOT_FILE)
         log(f"durable checkpoint (thief's store): {ck_ms:.2f} ms, snapshot "
             f"{os.path.getsize(snap)} B")
-        for key in ("thief", "thief-b"):
-            stores[key].close()
-            thieves[key].release()
+        stores["thief"].close()
+        thieves["thief"].release()
         stores["a"].close()
         stores["b"].close()
         leases["b"].release()
@@ -2508,8 +2525,10 @@ def fleet_phase(torch, np, problem, keep, card, data_dir, launches_by) -> None:
     """Phase 10's durable fleet: ``ShardedScheduler.build(4, data_dir=...,
     stacked="always")`` on the card against an in-memory CPU plane
     (``stacked="never"``), the cron front end's round options; four rounds,
-    a crash copy, ``open_fleet`` and a fifth round, beside a second copy
-    reopened on the CPU (the reopened fleet's comparator, as fresh as it)."""
+    a crash copy, ``open_fleet`` and a fifth round, held to the live CPU
+    plane without the queue documents' write stamps (its persisters are
+    fresh). A second copy reopened on the CPU, the reopened fleet's
+    comparator with every field, was cut when phase 11 needed the time."""
     import shutil
 
     from evergreen_tpu_torch.ops.distro_stats import fused_distro_stats
@@ -2550,7 +2569,7 @@ def fleet_phase(torch, np, problem, keep, card, data_dir, launches_by) -> None:
     real_time = time.time
     stacked_calls = {"card": timed_stacked_solve(planes["card"])}
     reopened = {}
-    copies = [data_dir + "-crashed", data_dir + "-crashed-cpu"]
+    copies = [data_dir + "-crashed"]
 
     def plane_docs(plane, stamps):
         return json.dumps([[
@@ -2636,20 +2655,17 @@ def fleet_phase(torch, np, problem, keep, card, data_dir, launches_by) -> None:
                   f"fleet round {label}: migrations {res['card'].migrations}")
         for s in planes["card"].stores:
             s.sync_persist()
-        for path in copies:  # a lease's tmp file may be renamed under the copy
-            shutil.copytree(data_dir, path, ignore=shutil.ignore_patterns("*.lease.*"))
-        open_ms = {}
-        for name, path, dev, stacked in (("reopened", copies[0], card, "always"),
-                                         ("reopened cpu", copies[1], "cpu", "never")):
-            t0 = time.perf_counter()
-            reopened[name] = open_fleet(path, PLANE_SHARDS, lease_ttl_s=LEASE_TTL_S,
-                                        device=dev, stacked=stacked, **kw)
-            open_ms[name] = (time.perf_counter() - t0) * 1e3
+        # a lease's tmp file may be renamed under the copy
+        shutil.copytree(data_dir, copies[0], ignore=shutil.ignore_patterns("*.lease.*"))
+        t0 = time.perf_counter()
+        reopened["reopened"] = open_fleet(copies[0], PLANE_SHARDS, lease_ttl_s=LEASE_TTL_S,
+                                          device=card, stacked="always", **kw)
+        open_ms = (time.perf_counter() - t0) * 1e3
         stacked_calls["reopened"] = timed_stacked_solve(reopened["reopened"])
-        log(f"durable fleet: the directory copied twice after round 4 without closing; "
-            f"open_fleet(copy) in {open_ms['reopened']:.2f} ms on the card, "
-            f"{open_ms['reopened cpu']:.2f} ms on the CPU (stale leases stolen, epochs "
-            f"{[s.epoch for s in reopened['reopened'].stores]}, handoffs reconciled)")
+        log(f"durable fleet: the directory copied after round 4 without closing; "
+            f"open_fleet(copy) in {open_ms:.2f} ms on the card (stale leases stolen, "
+            f"epochs {[s.epoch for s in reopened['reopened'].stores]}, handoffs "
+            f"reconciled)")
         now = NOW + len(FLEET_ROUNDS) * TICK_STEP_S
         keyed = {**reopened, "cpu": planes["cpu"]}
         for plane in keyed.values():
@@ -2662,7 +2678,435 @@ def fleet_phase(torch, np, problem, keep, card, data_dir, launches_by) -> None:
     left = [f for d in [data_dir] + copies if os.path.isdir(d)
             for f in os.listdir(d) if f.endswith(".lease")]
     check(left == [], f"durable fleet: lease files left after close(): {left}")
-    log("durable fleet: the three durable fleets closed, every shard lease released")
+    log("durable fleet: the two durable fleets closed, every shard lease released")
+
+
+# ---- phase 11: the process-per-shard fleet -------------------------------- #
+
+PROC_SHARDS = 4
+#: the fleet's rounds: prime, two quiet rounds, the round after a handoff
+#: and, after shard 2 is drained, killed and restarted, two more
+PROC_ROUNDS = ("1 (prime)", "2 (quiet)", "3 (quiet)", "4 (after the handoff)",
+               "5 (after the restart)", "6 (quiet)")
+#: the handoff lands before this round (0-based); shard 2 is killed after it
+PROC_MIGRATE, PROC_KILL_AFTER, PROC_KILLED = 3, 3, 2
+#: the leader's modes: round 1 measures the floor (local); round 2 stacks
+#: or meets a shard whose intents grew it past the floor; the round after
+#: the handoff stacks or meets the target grown past the floor; the rest
+#: stack
+PROC_MODES = ("local", "stacked or grown", "stacked", "stacked or grown", "stacked",
+              "stacked")
+#: the supervisor's recovery anchor: the boot's recovery pass runs at it,
+#: a restart's at it plus the rounds done times the supervisor's TICK_S
+PROC_ANCHOR = 1_750_000_000.0 - 15.0
+#: tasks the seeded churn leaves in flight, per shard: on hosts whose
+#: heartbeat is stale at the anchor, on hosts that are gone, on a
+#: terminated host; and mock hosts left building
+PROC_STALE, PROC_GONE, PROC_BUILDING = 3, 2, 3
+
+
+def proc_round_now(r) -> float:
+    return PROC_ANCHOR + (r + 1) * TICK_STEP_S
+
+
+def seed_proc_fleet(problem, data_dir) -> dict:
+    """Config 3 with phase 6's capacity settings (each shard's quota and
+    intent budget a quarter of the fleet's), split over ``PROC_SHARDS``
+    shard segments at epoch 0 (no lease: the workers' writes land after
+    these), then a churn written without a lease: benchgen's phantom
+    ``running_task`` stamps stay (recovery step 1), some tasks are left in
+    flight on hosts that cannot be running them (step 2) and some mock
+    hosts building (step 3)."""
+    from evergreen_tpu_torch.scheduler.sharded_plane import ShardedScheduler
+    from evergreen_tpu_torch.settings import CapacityConfig
+    from evergreen_tpu_torch.storage.durable import DurableStore
+    from evergreen_tpu_torch.storage.store import Store
+
+    src = Store()
+    seed_tick_store(src, problem)
+    stores = [DurableStore(data_dir, shard_id=k) for k in range(PROC_SHARDS)]
+    for s in stores:  # each segment's seed is one group frame, as JAX seeds
+        s.begin_tick()
+    plane = ShardedScheduler(stores, device="cpu", stacked="never")
+    plane.seed_partition(src)
+    quota = {p: q // PROC_SHARDS for p, q in PLAN_QUOTA.items()}
+    stale = PROC_ANCHOR - 3600.0
+    for k, s in enumerate(stores):
+        CapacityConfig(pool_quotas=quota,
+                       fleet_intent_budget=PLAN_BUDGET // PROC_SHARDS).set(s)
+        tasks, hosts = s.collection("tasks"), s.collection("hosts")
+        runnable = sorted(d["_id"] for d in tasks.find()
+                          if d["status"] == "undispatched" and d["activated"])
+        free = sorted(d["_id"] for d in hosts.find()
+                      if d["status"] == "running" and not d["running_task"])
+        n = PROC_STALE + PROC_GONE + 1
+        picked, on_hosts = runnable[:n], free[:PROC_STALE + 1]
+        for tid, hid in zip(picked[:PROC_STALE], on_hosts):
+            tasks.update(tid, {"status": "started", "host_id": hid, "dispatch_time": stale,
+                               "start_time": stale, "last_heartbeat": stale})
+            hosts.update(hid, {"running_task": tid})
+        for j, tid in enumerate(picked[PROC_STALE:PROC_STALE + PROC_GONE]):
+            tasks.update(tid, {"status": "dispatched", "host_id": f"gone-{k}-{j}",
+                               "dispatch_time": PROC_ANCHOR - 60.0,
+                               "last_heartbeat": PROC_ANCHOR - 60.0})
+        down = on_hosts[PROC_STALE]
+        hosts.update(down, {"status": "terminated", "termination_time": stale})
+        tasks.update(picked[-1], {"status": "started", "host_id": down,
+                                  "dispatch_time": PROC_ANCHOR - 60.0,
+                                  "start_time": PROC_ANCHOR - 60.0,
+                                  "last_heartbeat": PROC_ANCHOR - 60.0})
+        building = free[PROC_STALE + 1:PROC_STALE + 1 + PROC_BUILDING]
+        for j, hid in enumerate(building):
+            hosts.update(hid, {"status": "building",
+                               "external_id": f"mock-{hid}" if j == 0 else ""})
+        s.end_tick()
+    plane.close()  # each segment's checkpoint; no lease to release
+
+
+def proc_migration(data_dir) -> tuple:
+    """The handoff of ``PROC_MIGRATE``: shard 0's first distro by id that
+    is its own affinity group, to shard 1, with its ``now``; read off the
+    seeded segments, so the twin knows it before the fleet runs."""
+    from evergreen_tpu_torch.parallel.topology import ShardTopology
+    from evergreen_tpu_torch.storage.durable import DurableStore
+
+    s = DurableStore(data_dir, shard_id=0)
+    s._journal.close()  # inspection: never close() a segment we do not own
+    topo = ShardTopology(PROC_SHARDS)
+    topo.affinity = ShardTopology.affinity_from_store(s)
+    ids = sorted(d["_id"] for d in s.collection("distros").find())
+    distro = next(d for d in ids if sum(topo.placement_key(x) == topo.placement_key(d)
+                                        for x in ids) == 1)
+    return distro, 0, 1, proc_round_now(PROC_MIGRATE) - 1.0
+
+
+def proc_canon(doc):
+    """``canon_doc``, and an intent's creation time, which the clock of the
+    process that made it stamps."""
+    if "payload" in doc:
+        return dict(doc, payload={c: [proc_canon(d) for d in ds]
+                                  for c, ds in doc["payload"].items()})
+    intent = doc["_id"].startswith("evg-") and doc.get("status") == "initializing"
+    doc = canon_doc(doc)
+    return dict(doc, creation_time=0.0) if intent else doc
+
+
+def proc_docs(store) -> str:
+    """Every collection of ``store`` that holds a document, canonical."""
+    names = [n for n in sorted(store._collections) if len(store.collection(n))]
+    return json.dumps({n: [proc_canon(d) for d in store.collection(n).find()]
+                       for n in names}, sort_keys=True, separators=(",", ":"),
+                      default=str)
+
+
+def proc_twin(here, data_dir, migration, out_path) -> None:
+    """The fleet's CPU twin, in a process of its own (it runs while the
+    fleet does): the same sequence in-process on the CPU over a copy of
+    the seeded directory — each shard's ``DurableStore`` (no lease),
+    ``run_recovery_pass`` at the anchor, ``run_tick`` with the worker's
+    service options at each round's ``now``, the handoff through
+    ``apply_release`` / ``apply_prime`` and the done-mark, and shard
+    ``PROC_KILLED`` reopened after ``PROC_KILL_AFTER`` and recovered
+    again, as its restarted worker is. Writes the recovery reports and
+    each shard's canonical documents to ``out_path``."""
+    sys.path.insert(0, here)
+    from evergreen_tpu_torch.parallel.topology import ShardTopology
+    from evergreen_tpu_torch.scheduler import sharded_plane as sp
+    from evergreen_tpu_torch.scheduler import wrapper
+    from evergreen_tpu_torch.scheduler.recovery import run_recovery_pass
+    from evergreen_tpu_torch.storage.durable import DurableStore
+
+    opts = wrapper.TickOptions(create_intent_hosts=True, use_cache=True,
+                               solve_deadline_s=10.0, tick_budget_s=12.0,
+                               async_persist=True)
+    t0 = time.perf_counter()
+    stores = [DurableStore(data_dir, shard_id=k) for k in range(PROC_SHARDS)]
+    reports = {"boot": [run_recovery_pass(s, now=PROC_ANCHOR).to_doc() for s in stores]}
+    distro, src, dst, mig_now = migration
+    for r in range(len(PROC_ROUNDS)):
+        if r == PROC_MIGRATE:
+            topo = ShardTopology(PROC_SHARDS)
+            topo.affinity = ShardTopology.affinity_from_store(stores[src])
+            rep = topo.placement_key(distro)
+            group = sorted(d["_id"] for d in stores[src].collection("distros").find()
+                           if topo.placement_key(d["_id"]) == rep)
+            rec = sp.handoff_record(distro, group, src, dst, 1, mig_now,
+                                    sp.handoff_payload(stores[src], group))
+            sp.apply_release(stores[src], rec)
+            sp.apply_prime(stores[dst], json.loads(json.dumps(rec)))
+            stores[src].collection(sp.HANDOFFS_COLLECTION).update(rec["_id"],
+                                                                    {"state": "done"})
+        for s in stores:
+            res = wrapper.run_tick(s, opts, now=proc_round_now(r), device="cpu")
+            if res.degraded:
+                raise RuntimeError(f"twin round {r + 1}: degraded {res.degraded!r}")
+        for s in stores:
+            s.sync_persist()
+        if r == PROC_KILL_AFTER:
+            stores[PROC_KILLED]._journal.close()  # a SIGKILL closes nothing else
+            stores[PROC_KILLED] = s2 = DurableStore(data_dir, shard_id=PROC_KILLED)
+            reports["restart"] = run_recovery_pass(
+                s2, now=PROC_ANCHOR + (r + 1) * TICK_STEP_S).to_doc()
+    docs = [proc_docs(s) for s in stores]
+    for s in stores:
+        s.close()
+    with open(out_path, "w") as fh:
+        json.dump({"reports": reports, "docs": docs,
+                   "ms": (time.perf_counter() - t0) * 1e3}, fh)
+
+
+def status_launches(msg) -> dict:
+    """A worker's ``status`` launch counters, as ``read_launches`` reads
+    this process's."""
+    got = msg["launches"]
+    out = {"fused_distro_stats": got["fused_distro_stats"], "segment_sum": got["segment_sum"]}
+    out.update({f"segment_sum[{p}]": c for p, c in got["segment_sum_by_plan"].items()})
+    return out
+
+
+def nonzero(launches) -> dict:
+    """``launches`` without its zero counts (a plan never launched has no
+    entry in a process's counters, and ``expected_launches`` of no solve
+    names every plan at 0)."""
+    return {k: v for k, v in launches.items() if v}
+
+
+def add_launches(total, got) -> None:
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+
+
+def process_fleet_phase(torch, np, problem, card="cuda", root=DATA_ROOT) -> dict:
+    """Phase 11: the process-per-shard fleet (``FleetSupervisor`` on
+    ``card``, four shard worker processes on it, the supervisor the
+    solver leader with ``solver="always"``), seeded at config 3 with a
+    churn that recovery heals, against a CPU twin in a process of its own.
+    Returns the fleet's launches (the leader's here, the workers' from
+    their ``status``), as ``read_launches`` reads them. ``card="cpu"`` rehearses it on the CPU."""
+    import multiprocessing
+    import shutil
+    import signal
+
+    from evergreen_tpu_torch.ops.distro_stats import fused_distro_stats
+    from evergreen_tpu_torch.ops.segment import segment_sum
+    from evergreen_tpu_torch.runtime.supervisor import FleetSupervisor
+    from evergreen_tpu_torch.scheduler.sharded_plane import fleet_owner_violations
+    from evergreen_tpu_torch.settings import CapacityConfig
+    from evergreen_tpu_torch.storage.durable import DurableStore
+    from evergreen_tpu_torch.utils.retry import RetryPolicy
+
+    on_card = torch.device(card).type == "cuda"
+    iters = CapacityConfig().iterations
+    data_dir = os.path.join(root, "procfleet")
+    twin_dir = os.path.join(root, "procfleet-twin")
+    for d in (data_dir, twin_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(data_dir)
+    t0 = time.perf_counter()
+    seed_proc_fleet(problem, data_dir)
+    seed_ms = (time.perf_counter() - t0) * 1e3
+    migration = proc_migration(data_dir)
+    shutil.copytree(data_dir, twin_dir)
+    out_path = os.path.join(root, "procfleet-twin.json")
+    twin = multiprocessing.get_context("spawn").Process(
+        target=proc_twin, args=(HERE, twin_dir, migration, out_path), daemon=True)
+    twin.start()
+    log(f"process fleet: config 3 (seed {SEED}) seeded over {PROC_SHARDS} shard segments "
+        f"at epoch 0 in {seed_ms:.1f} ms, each shard's quota and intent budget a "
+        f"quarter of phase 6's; churn written without a lease, per shard: "
+        f"{PROC_STALE} tasks started on hosts whose heartbeats are stale at the "
+        f"recovery anchor, {PROC_GONE} dispatched on hosts that are gone, 1 on a "
+        f"terminated host, {PROC_BUILDING} mock hosts building; the CPU twin started "
+        f"on a copy of the directory (pid {twin.pid})")
+    sup = FleetSupervisor(
+        data_dir, PROC_SHARDS, ttl_s=LEASE_TTL_S, hb_interval_s=1.0, hb_deadline_s=10.0,
+        recovery_anchor=PROC_ANCHOR, orphan_grace_s=10.0, supervisor_lease_ttl_s=LEASE_TTL_S,
+        restart_policy=RetryPolicy(attempts=1_000_000, base_backoff_s=0.25,
+                                   max_backoff_s=2.0, jitter=0.0),
+        solver="always", device=card)
+    serves, worker_launches, leader = [], {}, {}
+    try:
+        reset_launches(fused_distro_stats, segment_sum)
+        t0 = time.perf_counter()
+        sup.start()
+        start_ms = (time.perf_counter() - t0) * 1e3
+        check(all(h.state == "ready" for h in sup.handles.values()),
+              f"process fleet: workers not ready {[h.state for h in sup.handles.values()]}")
+        svc = sup.solver_service
+        check(svc is not None and svc.epoch == 1, "process fleet: no solver leader")
+        real_serve = svc.serve_round
+
+        def serve(shards, seq=None, budget_s=None):
+            """The leader's round, timed, with the shape keys it declined
+            as drift and the floor they met."""
+            floor = dict(svc.common_dims) if svc.common_dims else None
+            keys, real_decline = [], svc._decline
+
+            def decline(seg, s_, cause):
+                if cause == 1:
+                    keys.append(seg.shape_key())
+                return real_decline(seg, s_, cause)
+
+            svc._decline = decline
+            t1 = time.perf_counter()
+            try:
+                outcome = real_serve(shards, seq, budget_s)
+            finally:
+                svc._decline = real_decline
+            serves.append(dict(ms=(time.perf_counter() - t1) * 1e3, outcome=outcome,
+                               drift=(floor, keys) if keys else None))
+            return outcome
+
+        svc.serve_round = serve
+        for k, h in sup.handles.items():
+            hello = h.hellos[0]
+            check(h.epochs == [1], f"process fleet: shard {k} booted at epochs {h.epochs}")
+            log(f"process fleet: shard {k} hello at epoch {h.epoch}, recovery pass "
+                f"{hello['recovery_ms']:.2f} ms, recovered {hello['recovered']}")
+        log(f"process fleet: FleetSupervisor.start() on {card} (fleet lease, solver "
+            f"lease, spawn, backend probe, replay, recovery, hello) {start_ms:.2f} ms")
+        stacked_blocks = 0
+        #: local solves per (shard, process life): the killed shard's second
+        #: life starts after PROC_KILL_AFTER
+        local_solves = {(k, 1): 0 for k in range(PROC_SHARDS)}
+        local_solves[(PROC_KILLED, 2)] = 0
+        takeover_ms = None
+        for r, label in enumerate(PROC_ROUNDS):
+            if r == PROC_MIGRATE:
+                distro, src, dst, now = migration
+                t1 = time.perf_counter()
+                rec = sup.migrate(distro, src, dst, now=now)
+                check(rec is not None and rec["seq"] == 1 and rec["state"] == "released",
+                      f"process fleet: migrate({distro}) gave {rec}")
+                log(f"process fleet: migrate({distro!r}, {src}, {dst}) over the control "
+                    f"protocol in {(time.perf_counter() - t1) * 1e3:.2f} ms: group "
+                    f"{rec['group']}")
+            n_serves = len(serves)
+            t1 = time.perf_counter()
+            res = sup.round(now=proc_round_now(r))
+            wall = (time.perf_counter() - t1) * 1e3
+            check(sorted(res) == list(range(PROC_SHARDS)),
+                  f"process fleet round {label}: replies from {sorted(res)}")
+            for k, rep in res.items():
+                check(rep["degraded"] == "", f"round {label}: shard {k} degraded "
+                      f"{rep['degraded']!r}")
+                check(rep["solve"] in ("stacked", "local"), f"round {label}: shard {k} "
+                      f"solve {rep['solve']!r}")
+            solves = [res[k]["solve"] for k in range(PROC_SHARDS)]
+            mode = "stacked" if set(solves) == {"stacked"} else "local"
+            served = serves[n_serves:]
+            drift = [x["drift"] for x in served if x["drift"]]
+            check_plane_a_mode(r, label, mode, drift, modes=PROC_MODES)
+            stacked_blocks += solves.count("stacked")
+            for k in range(PROC_SHARDS):
+                life = 2 if k == PROC_KILLED and r > PROC_KILL_AFTER else 1
+                local_solves[(k, life)] += solves[k] == "local"
+            log(f"process fleet round {label}: mode {mode} (shards {solves}, causes "
+                f"{[res[k]['solve_cause'] for k in range(PROC_SHARDS)]}; leader "
+                + ", ".join(f"{x['outcome']} in {x['ms']:.2f} ms" for x in served)
+                + f", drift {drift}); wall {wall:.2f} ms, shard ticks ms "
+                + ", ".join(f"{res[k]['ms']:.2f}" for k in range(PROC_SHARDS))
+                + f"; epochs {[res[k]['epoch'] for k in range(PROC_SHARDS)]}")
+            if r == PROC_KILL_AFTER:
+                # every worker's counters before one of them is killed
+                for k, st in sup.statuses().items():
+                    worker_launches[(k, 1)] = status_launches(st)
+                h = sup.handles[PROC_KILLED]
+                req = h.next_req()
+                h.send(op="drain", req=req)
+                check(h.wait_reply("drained", 60.0, req=req) is not None,
+                      f"process fleet: shard {PROC_KILLED} did not drain")
+                t1 = time.perf_counter()
+                os.kill(h.pid, signal.SIGKILL)
+                deadline = time.time() + 120.0
+                while time.time() < deadline and not (h.restarts == 1 and h.state == "ready"):
+                    time.sleep(0.02)
+                takeover_ms = (time.perf_counter() - t1) * 1e3
+                check(h.state == "ready" and h.epochs == [1, 2] and h.exits == [-9],
+                      f"process fleet: shard {PROC_KILLED} restart: state {h.state}, "
+                      f"epochs {h.epochs}, exits {h.exits}")
+                hello = h.hellos[-1]
+                log(f"process fleet: shard {PROC_KILLED} drained, SIGKILLed and restarted "
+                    f"by the watchdog at epoch {h.epoch} in {takeover_ms:.2f} ms (SIGKILL "
+                    f"to the next hello: backoff {h.backoffs[-1]:.2f} s, lease TTL "
+                    f"{LEASE_TTL_S} s, spawn, probe, replay, recovery); its recovery "
+                    f"pass {hello['recovery_ms']:.2f} ms, recovered {hello['recovered']}")
+        for k, st in sup.statuses().items():
+            worker_launches[(k, 2 if k == PROC_KILLED else 1)] = status_launches(st)
+        leader = read_launches(fused_distro_stats, segment_sum)
+        t1 = time.perf_counter()
+        sup.stop(graceful=True)
+        stop_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        sup.stop(graceful=False)
+    check(all(h.proc.returncode == 0 for h in sup.handles.values()),
+          f"process fleet: exits {[h.proc.returncode for h in sup.handles.values()]}")
+    left = [f for f in os.listdir(data_dir) if f.endswith(".lease")]
+    check(left == [], f"process fleet: lease files left after stop(): {left}")
+    log(f"process fleet: stop(graceful=True) in {stop_ms:.2f} ms (drain, checkpoint, "
+        f"release); every worker exited 0, every lease released")
+
+    # launches: the leader's stacked blocks here, each worker's local solves
+    # in its own process (the killed one's counted before the kill)
+    want = expected_launches([iters] * stacked_blocks) if on_card else {}
+    check(nonzero(leader) == nonzero(want),
+          f"process fleet: the leader launched {leader}, expected {want} "
+          f"({stacked_blocks} stacked blocks)")
+    fleet = dict(leader)
+    for key, got in sorted(worker_launches.items()):
+        want = expected_launches([iters] * local_solves[key]) if on_card else {}
+        check(nonzero(got) == nonzero(want),
+              f"process fleet: worker {key[0]} (life {key[1]}) launched "
+              f"{got}, expected {want} ({local_solves[key]} local solves)")
+        add_launches(fleet, got)
+    log(f"process fleet launches: leader {leader} for {stacked_blocks} stacked blocks; "
+        f"workers (shard.life: fused_distro_stats, segment_sum for local solves) "
+        + json.dumps({f"{k}.{life}": [got["fused_distro_stats"], got["segment_sum"],
+                                      local_solves[(k, life)]]
+                      for (k, life), got in sorted(worker_launches.items())})
+        + " (exact)")
+
+    # the twin's documents and reports against the fleet's segments
+    twin.join(timeout=600)
+    check(twin.exitcode == 0, f"process fleet: the CPU twin exited {twin.exitcode}")
+    with open(out_path) as fh:
+        twin_out = json.load(fh)
+    for k, h in sup.handles.items():
+        for hello, report in zip(h.hellos, [twin_out["reports"]["boot"][k]]
+                                 + ([twin_out["reports"]["restart"]]
+                                    if k == PROC_KILLED else [])):
+            counts = {"released_claims": len(report["released_claims"]),
+                      "stranded_reset": len(report["stranded_reset"]),
+                      "stale_frames_dropped": report["stale_frames_dropped"]}
+            check(hello["recovered"] == counts, f"process fleet: shard {k} recovered "
+                  f"{hello['recovered']}, the twin {counts}")
+    boot = twin_out["reports"]["boot"]
+    check(all(b["released_claims"] and b["stranded_reset"] and b["hosts_terminated"]
+              for b in boot), "process fleet: a shard's recovery did not act on each step")
+    t0 = time.perf_counter()
+    stores = [DurableStore(data_dir, shard_id=k) for k in range(PROC_SHARDS)]
+    for s in stores:
+        s._journal.close()  # inspection-open: never close() (a checkpoint)
+    read_ms = (time.perf_counter() - t0) * 1e3
+    check(fleet_owner_violations(stores) == [],
+          "process fleet: a document has two owners")
+    n_docs = 0
+    for k, s in enumerate(stores):
+        got = proc_docs(s)
+        check(got == twin_out["docs"][k], f"process fleet: shard {k}'s documents differ "
+              f"from the CPU twin's")
+        n_docs += sum(len(s.collection(n)) for n in s._collections)
+    log(f"process fleet: after stop, the four segments (replayed read-only in "
+        f"{read_ms:.2f} ms) hold {n_docs} documents, each shard's equal to the CPU "
+        f"twin's (twin {twin_out['ms']:.0f} ms in its own process; intent and event ids, "
+        f"intents' secrets and creation times canonicalised); one owner per document; "
+        f"recovery counts equal the twin's: boot " + json.dumps(
+            [{k: len(v) for k, v in b.items() if isinstance(v, list)} for b in boot])
+        + ", restart " + json.dumps({k: len(v) for k, v in
+                                     twin_out["reports"]["restart"].items()
+                                     if isinstance(v, list)}))
+    shutil.rmtree(root, ignore_errors=True)
+    return fleet
 
 
 def main() -> int:
@@ -2692,12 +3136,9 @@ def main() -> int:
     check(torch.cuda.device_count() == 1, "expected exactly one visible card")
 
     # the backend probe: a fresh interpreter must see the card
-    from evergreen_tpu_torch.utils.torchenv import ensure_usable_backend, probe_backend_detail
+    from evergreen_tpu_torch.utils.torchenv import ensure_usable_backend
 
-    probe = probe_backend_detail()
-    log(f"backend probe: probe_backend_detail() = {probe}")
-    check(probe == (True, ""), f"the backend probe failed: {probe}")
-    backend = ensure_usable_backend()
+    backend = ensure_usable_backend()  # one probe_backend_detail() in a fresh interpreter
     log(f"backend probe: ensure_usable_backend() = {backend!r}")
     check(backend == "cuda", f"ensure_usable_backend() returned {backend!r}")
 
@@ -2756,7 +3197,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s wall "
         + " ".join(f"{k}={s:.2f}s" for k, s in build_s.items()))
     for k in kernels:
-        logf = os.path.join(_build.BUILD_DIR, f"lib{k}.log")
+        logf = _build.build_log(k)
         if os.path.exists(logf):
             with open(logf) as f:
                 for line in f.read().splitlines():
@@ -3031,14 +3472,21 @@ def main() -> int:
     durable = durable_phase(torch, np, problems["seed0"])
     phase_done("phase 10")
 
-    # ---- 11. result -------------------------------------------------------- #
+    # ---- 11. the process-per-shard fleet ------------------------------------ #
+    log(f"process fleet on {smi}")
+    proc = process_fleet_phase(torch, np, problems["seed0"])
+    phase_done("phase 11")
+
+    # ---- 12. result -------------------------------------------------------- #
     # launches: phase 7's ticks (card first), phase 8's card stores, phase
-    # 9's card planes and phase 10's card stores and fleets ("durable";
-    # its in-memory control store (c) apart, as "durable control"). The
+    # 9's card planes, phase 10's card stores and fleets ("durable"; its
+    # in-memory control store (c) apart, as "durable control") and phase
+    # 11's process fleet ("fleet": the leader's and every worker's). The
     # warm card store and plane (b) of phases 8-9, and phase 10's card
     # stores, pack through their resident planes: their fused_distro_stats
     # ran on the slab layout and are the slab row's alone; phase 10's
-    # fleet stacks (cold builds at the common dims)
+    # fleet stacks, and phase 11's workers build at the leader's floor
+    # (cold builds at the common dims)
     slab_stores = ("a", "replayed", "thief")
     paths = {"tick": tick_launches, **service["launches"]}
     for r in rows:
@@ -3053,6 +3501,7 @@ def main() -> int:
             if p != "c" and not (slab_only and p != "fleet"))
         r["launches_by_path"]["durable control"] = (
             0 if slab_only else durable["c"].get(r["name"], 0))
+        r["launches_by_path"]["fleet"] = proc.get(r["name"], 0)
         r["launches"] = sum(r["launches_by_path"].values())
     slab = service["slab_row"]
     slab["floor_ms"] = floor_ms
@@ -3060,7 +3509,8 @@ def main() -> int:
         "card warm": service["launches"]["card warm"]["fused_distro_stats"],
         "sharded": sharded["b"]["fused_distro_stats"],
         "durable": sum(durable[k].get("fused_distro_stats", 0) for k in slab_stores),
-        "durable control": durable["c"].get("fused_distro_stats", 0)}
+        "durable control": durable["c"].get("fused_distro_stats", 0),
+        "fleet": 0}
     slab["launches"] = sum(slab["launches_by_path"].values())
     rows.append(slab)
     # the byte and chain bounds behind bound_ms are in the log lines above

@@ -1,11 +1,65 @@
-"""Provider pool prices for the capacity program.
+"""Provider-agnostic cloud manager interface and the pool price table.
 
-A copy of ``evergreen_tpu/cloud/manager.py``'s ``default_pool_prices``
-and its table; the cloud managers themselves are not ported.
+A copy of ``evergreen_tpu/cloud/manager.py``: ``CloudHostStatus``, the
+``CloudManager`` surface the recovery pass reads (the instance status
+probe; terminate and stop), ``register_manager`` / ``get_manager``
+(reference cloud/cloud.go:147-177 GetManager factory) and
+``default_pool_prices``. The spawn, start and DNS calls come with the
+provisioning plane, and so do the real providers (docker, ec2, static):
+``cloud/mock.py`` is the one ported provider, so ``get_manager`` of any
+other provider raises ``KeyError``.
 """
 from __future__ import annotations
 
-from typing import Dict
+import abc
+from typing import Callable, Dict
+
+from ..models.host import Host
+from ..storage.store import Store
+
+
+class CloudHostStatus:
+    """Provider-view instance states (reference cloud/cloud.go CloudStatus)."""
+
+    UNKNOWN = "unknown"
+    INITIALIZING = "initializing"
+    STARTING = "starting"
+    RUNNING = "running"
+    STOPPING = "stopping"
+    STOPPED = "stopped"
+    TERMINATED = "terminated"
+    NONEXISTENT = "nonexistent"
+
+
+class CloudManager(abc.ABC):
+    provider: str = ""
+
+    @abc.abstractmethod
+    def get_instance_status(self, store: Store, host: Host) -> str:
+        """The provider's truth about the instance — the reconciliation
+        source for the recovery pass (and host monitoring)."""
+
+    @abc.abstractmethod
+    def terminate_instance(self, store: Store, host: Host, reason: str) -> None:
+        ...
+
+    def stop_instance(self, store: Store, host: Host) -> None:
+        raise NotImplementedError(f"{self.provider} cannot stop instances")
+
+
+_REGISTRY: Dict[str, Callable[[], CloudManager]] = {}
+
+
+def register_manager(provider: str, factory: Callable[[], CloudManager]) -> None:
+    _REGISTRY[provider] = factory
+
+
+def get_manager(provider: str) -> CloudManager:
+    factory = _REGISTRY.get(provider)
+    if factory is None:
+        raise KeyError(f"no cloud manager registered for provider {provider!r}")
+    return factory()
+
 
 #: relative $/host-hour per provider pool when the ``capacity`` config
 #: section carries no explicit prices (ops/capacity.py price term).

@@ -46,6 +46,20 @@ class HostStatus(str, enum.Enum):
     TERMINATED = "terminated"
 
 
+class BuildStatus(str, enum.Enum):
+    CREATED = "created"
+    STARTED = "started"
+    SUCCEEDED = "success"
+    FAILED = "failed"
+
+
+class VersionStatus(str, enum.Enum):
+    CREATED = "created"
+    STARTED = "started"
+    SUCCEEDED = "success"
+    FAILED = "failed"
+
+
 #: states the allocator counts as active capacity
 HOST_ACTIVE_STATUSES = frozenset(
     {

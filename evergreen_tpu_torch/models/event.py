@@ -2,9 +2,10 @@
 trigger and notification pipeline (reference model/event/ package).
 
 A copy of ``evergreen_tpu/models/event.py``'s ``Event``, ``coll`` and
-``log``, which the tick calls for the intent hosts it creates and the
-overload ladder for its transitions and sheds, with the two resource
-types they log under. Event ids come from one process-wide sequence,
+``log``, which the tick calls for the intent hosts it creates, the
+overload ladder for its transitions and sheds, and the recovery pass
+and the task lifecycle (``models/lifecycle.py``) for what they change,
+with the resource types they log under. Event ids come from one process-wide sequence,
 ``evt-<n>``, as in the JAX package. The readers (``Event.from_doc``,
 ``find_unprocessed``, ``mark_processed``, ``find_by_resource``) and the
 other resource types are not ported: nothing in the port reads events.
@@ -30,7 +31,10 @@ _SEQ_HWM = -1
 
 
 # Resource types (reference model/event/event.go)
+RESOURCE_TASK = "TASK"
 RESOURCE_HOST = "HOST"
+RESOURCE_BUILD = "BUILD"
+RESOURCE_VERSION = "VERSION"
 RESOURCE_ADMIN = "ADMIN"
 
 

@@ -1,8 +1,10 @@
 """Host document.
 
 A copy of ``evergreen_tpu/models/host.py``'s ``Host`` (field for field)
-and the store functions the tick's gather and intent budget call;
-``assign_running_task`` and the other dispatch writes are not ported.
+and the store functions the tick's gather and intent budget call, with
+``clear_running_task`` (task end: ``models/lifecycle.py::mark_end``) and
+the recovery pass's claim release; ``assign_running_task`` and the other
+dispatch writes are not ported.
 """
 from __future__ import annotations
 
@@ -199,3 +201,39 @@ def all_active_hosts(store: Store, distro_id: str = "") -> List[Host]:
         return True
 
     return find(store, pred)
+
+
+#: the one definition of "no running task" — shared by task-end clearing
+#: below and the recovery pass's half-dispatched-claim release
+#: (scheduler/recovery.py)
+RUNNING_TASK_CLEAR_FIELDS = {
+    "running_task": "",
+    "running_task_group": "",
+    "running_task_build_variant": "",
+    "running_task_version": "",
+    "running_task_project": "",
+    "running_task_group_order": 0,
+}
+
+
+def clear_running_task(store: Store, host_id: str, task_id: str, now: float) -> bool:
+    """Clear assignment at task end, recording last-task affinity state
+    (reference host.ClearRunningTask)."""
+    c = coll(store)
+    doc = c.get(host_id)
+    if doc is None or doc.get("running_task") != task_id:
+        return False
+    return c.compare_and_set(
+        host_id,
+        expect={"running_task": task_id},
+        update={
+            **RUNNING_TASK_CLEAR_FIELDS,
+            "last_task": task_id,
+            "last_group": doc.get("running_task_group", ""),
+            "last_build_variant": doc.get("running_task_build_variant", ""),
+            "last_version": doc.get("running_task_version", ""),
+            "last_project": doc.get("running_task_project", ""),
+            "task_count": doc.get("task_count", 0) + 1,
+            "last_communication_time": now,
+        },
+    )

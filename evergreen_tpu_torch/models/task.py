@@ -171,6 +171,9 @@ class Task:
 
     # -- predicates ---------------------------------------------------------- #
 
+    def is_single_host_task_group(self) -> bool:
+        return self.task_group != "" and self.task_group_max_hosts == 1
+
     def is_finished(self) -> bool:
         return self.status in TASK_COMPLETED_STATUSES
 

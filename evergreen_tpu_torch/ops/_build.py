@@ -5,11 +5,18 @@ with ``nvcc`` for Hopper (``sm_90a``) into ``build/lib<name>-<hash>.so``
 at first use (the hash covers the source and the flags, so an edited
 source rebuilds) and loaded with ``ctypes``. Nothing is built or loaded
 at import time; ``build`` compiles several sources in parallel, one
-``nvcc`` process each.
+``nvcc`` process each. Processes that build at once (a fleet's leader and
+its shard workers on one card) take an exclusive ``flock`` on
+``build/lock`` around the compile and look for each library again once
+they hold it, so each source is compiled once; each build writes the
+compiler's report to a log of its own, named like its library, so a
+failed build reports its own log.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -71,7 +78,7 @@ def build(names: Iterable[str]) -> Dict[str, float]:
     """Compile every source of ``names`` whose library is missing, all
     in parallel; returns each build's wall seconds (0.0 = already built).
     The compiler's resource report (registers, shared memory, spills)
-    lands in ``build/lib<name>.log``. Raises if any build fails."""
+    lands in ``build_log(name)``. Raises if any build fails."""
     names = list(names)
     return dict(zip(names, _compile([(name, {}) for name in names])))
 
@@ -86,15 +93,34 @@ def build_variants(variants: Sequence[Tuple[str, Mapping[str, int]]]) -> List[st
     return [_lib_path(name, d) for name, d in variants]
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """Hold the exclusive lock on ``build/lock`` (released by the kernel
+    if the holder dies, so a killed build never wedges the next one)."""
+    with open(os.path.join(BUILD_DIR, "lock"), "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def _compile(jobs: Sequence[Tuple[str, Mapping[str, int]]]) -> List[float]:
     os.makedirs(BUILD_DIR, exist_ok=True)
+    if all(os.path.exists(_lib_path(name, d)) for name, d in jobs):
+        return [0.0] * len(jobs)
+    with _build_lock():
+        return _compile_locked(jobs)
+
+
+def _compile_locked(jobs: Sequence[Tuple[str, Mapping[str, int]]]) -> List[float]:
     procs = []
     for name, defines in jobs:
         out = _lib_path(name, defines)
-        log_path = out[:-3] + ".log" if defines else _log_path(name)
-        if os.path.exists(out):
+        if os.path.exists(out):  # another process built it while we waited
             procs.append(None)
             continue
+        log_path = out[:-3] + ".log"
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, *_flags(defines), "-o", tmp, source_path(name)]
         with open(log_path, "w") as log:  # the child keeps its own fd
@@ -109,7 +135,7 @@ def _compile(jobs: Sequence[Tuple[str, Mapping[str, int]]]) -> List[float]:
         rc = proc.wait()
         seconds[i] = time.perf_counter() - t0
         if rc == 0:
-            os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
+            os.replace(tmp, out)  # atomic: a reader sees all or nothing
         else:
             failed.append((jobs[i], log_path))
             if os.path.exists(tmp):
@@ -123,8 +149,9 @@ def _compile(jobs: Sequence[Tuple[str, Mapping[str, int]]]) -> List[float]:
     return seconds
 
 
-def _log_path(name: str) -> str:
-    return os.path.join(BUILD_DIR, f"lib{name}.log")
+def build_log(name: str) -> str:
+    """The compiler's report of ``csrc/<name>.cu``'s own build."""
+    return _lib_path(name, {})[:-3] + ".log"
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,17 +1,28 @@
-"""Fleet manifest entries: how the solver leader finds each shard's
-shared-memory segment.
+"""Fleet manifest: how the solver leader finds each shard's
+shared-memory segment, and how a restarted supervisor finds live workers.
 
-The part of ``evergreen_tpu/runtime/manifest.py`` that the solver-leader
-plane needs. Each shard worker records itself under
-``<data_dir>/fleet/shard<k>.json`` (pid, generation, epoch, control
+A copy of ``evergreen_tpu/runtime/manifest.py``. Each shard worker
+records itself under ``<data_dir>/fleet/shard<k>.json`` (pid, spawn
+generation, shard-lease epoch, the path of its re-attachable control
 socket, and its solver segment's name and size), written atomically with
-a ``"k"`` CRC stamp. The entry format is the JAX package's, so either
-package's leader reads either package's workers.
+a ``"k"`` CRC stamp, so a supervisor that crashed and came back can
+**adopt** the still-running worker over the socket instead of
+cold-respawning it (``runtime/supervisor.py::_try_adopt``). The entry
+format is the JAX package's, so either package's leader or supervisor
+reads either package's workers.
+
+The control socket is a unix-domain socket. Its path lives in the system
+temp dir keyed by a hash of the data dir (not inside the data dir),
+because ``sun_path`` is limited to ~107 bytes; the manifest entry records
+the real path.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
+import socket
+import tempfile
 from typing import Dict, Optional
 
 from ..storage import integrity
@@ -26,6 +37,16 @@ def fleet_dir(data_dir: str) -> str:
 
 def entry_path(data_dir: str, shard: int) -> str:
     return os.path.join(fleet_dir(data_dir), f"shard{shard}.json")
+
+
+def socket_path(data_dir: str, shard: int) -> str:
+    """A per-(data dir, shard) UDS path short enough for sun_path."""
+    key = hashlib.sha1(
+        os.path.abspath(data_dir).encode("utf-8")
+    ).hexdigest()[:10]
+    return os.path.join(
+        tempfile.gettempdir(), f"evg-fleet-{key}-{shard}.sock"
+    )
 
 
 def write_entry(data_dir: str, shard: int, *, pid: int, sock: str,
@@ -92,3 +113,15 @@ def remove_entry(data_dir: str, shard: int,
             os.unlink(path)
         except OSError:
             pass
+
+
+def connect(sock_path: str, timeout_s: float = 5.0) -> socket.socket:
+    """Connect to a worker's control socket; raises OSError when the
+    worker is gone (the adoption probe's failure path). The JAX package's
+    ``sock.adopt`` transport-fault seam is left out with the other
+    transport faults (``ipc.send`` / ``ipc.recv``)."""
+    conn = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    conn.settimeout(timeout_s)
+    conn.connect(sock_path)
+    conn.settimeout(None)
+    return conn

@@ -27,12 +27,15 @@ higher epoch. Segments are named per (data_dir, shard), registered in
 the fleet manifest (``shm`` + ``shm_bytes``), unlinked on a clean worker
 exit and reaped from dead pids by ``reap_orphan_segments``.
 
-Not ported yet: the zero-copy publish through an arena pool
-(``SolverClient.arena_backing``), which needs the pool's ``backing``
-provider (``ops/packing.py::ArenaPool`` has none yet); the process-wide metrics registry (the
+The fleet supervisor (``runtime/supervisor.py``) is the leader of its
+workers: it builds ``SolverService(..., supervisor=self)``, and serving
+stops at the next seam check once that supervisor has crashed or been
+deposed. Not ported: the zero-copy publish through an arena pool
+(``SolverClient.arena_backing``; the port's client copies into its
+segment, or syncs dirty spans through ``ShmResidentSink``, and both give
+the same documents), and the process-wide metrics registry (the
 per-instance counters ``fallbacks``, ``round_outcomes`` and
-``stale_accepted`` are kept); and the supervisor hook of the fleet
-runtime, which serving stops for when the supervisor crashed.
+``stale_accepted`` are kept).
 """
 from __future__ import annotations
 
@@ -577,8 +580,11 @@ class SolverService:
 
     def __init__(self, data_dir: str, n_shards: int, *,
                  lease_ttl_s: float = 5.0, timeout_s: float = 10.0,
-                 device=None) -> None:
+                 device=None, supervisor=None) -> None:
         self.device = resolve_device(device)
+        #: the fleet supervisor this leader serves, if any: serving stops
+        #: once it has crashed or been deposed
+        self._sup = supervisor
         self.data_dir = data_dir
         self.n_shards = n_shards
         self.timeout_s = timeout_s
@@ -644,6 +650,9 @@ class SolverService:
 
     def _aborted(self) -> bool:
         if self._lost:
+            return True
+        sup = self._sup
+        if sup is not None and (sup.crashed or sup.deposed):
             return True
         if self.lease.superseded():
             self._deposed()

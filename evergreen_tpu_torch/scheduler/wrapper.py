@@ -38,11 +38,12 @@ sharded plane (``scheduler/sharded_plane.py``) sets the options that
 split one fleet over shards: ``intent_budget``,
 ``capacity_quota_scale``, ``use_resident``, ``solve_fn`` (its round
 barrier, whose ``KernelError``/``MirrorError`` also raise out of the
-tick) and ``force_dims``. The tick always plans solver distros with the
-batched solve, unschedules stale underwater tasks and caps in-flight
+tick) and ``force_dims``. A shard worker in harness mode
+(``runtime/worker.py``) turns ``underwater_unschedule`` off. The tick
+always plans solver distros with the batched solve and caps in-flight
 intents at ``MAX_INTENT_HOSTS_IN_FLIGHT``: the JAX options
-``planner_version``, ``underwater_unschedule`` and ``max_intent_hosts``
-are left out; with tracing: the spans and ``TickResult.trace_id``.
+``planner_version`` and ``max_intent_hosts`` are left out; with tracing:
+the spans and ``TickResult.trace_id``.
 """
 from __future__ import annotations
 
@@ -188,6 +189,9 @@ def solve_breaker_for(store: Store):
 @dataclasses.dataclass
 class TickOptions:
     max_scheduled_per_distro: int = 0
+    #: unschedule tasks that sat undispatched past
+    #: ``UNDERWATER_UNSCHEDULE_THRESHOLD_S`` before gathering
+    underwater_unschedule: bool = True
     create_intent_hosts: bool = True
     #: ABSOLUTE intent budget for THIS tick, already netted against
     #: fleet-wide in-flight intents by the caller (the sharded plane
@@ -681,9 +685,10 @@ def _run_tick_body(
     prior_persist_failed: bool,
     committed: list,
 ) -> TickResult:
-    task_mod.unschedule_stale_underwater(
-        store, "", now, UNDERWATER_UNSCHEDULE_THRESHOLD_S
-    )
+    if opts.underwater_unschedule:
+        task_mod.unschedule_stale_underwater(
+            store, "", now, UNDERWATER_UNSCHEDULE_THRESHOLD_S
+        )
 
     # delta drain: the TickCache's maintained views (or the cold
     # finders) become this tick's solver inputs

@@ -1,13 +1,15 @@
 """Store-backed config sections: the ones the tick's planning half reads.
 
-A copy of the part of ``evergreen_tpu/settings.py`` the tick needs:
+A copy of the part of ``evergreen_tpu/settings.py`` the port needs:
 ``ConfigSection`` with its field-level overrides, and the
-``service_flags``, ``capacity``, ``overrides``, ``release_mode`` and
-``overload`` sections. Sections live in the same ``config`` collection under the same
-``_id`` with the same fields, so a section one package writes reads back
-the same in the other (``tests/test_torch_store.py``). The registry holds
-these five sections only, so an override of a section the port lacks is
-refused as unknown; the other sections are not ported.
+``service_flags``, ``capacity``, ``overrides``, ``release_mode``,
+``overload`` and ``sharding`` sections (``models/cost.py`` registers
+``cost`` as the JAX package's model does). Sections live in the same
+``config`` collection under the same ``_id`` with the same fields, so a
+section one package writes reads back the same in the other
+(``tests/test_torch_store.py``). The registry holds these sections only,
+so an override of a section the port lacks is refused as unknown; the
+other sections are not ported.
 """
 from __future__ import annotations
 
@@ -324,4 +326,115 @@ class OverloadConfig(ConfigSection):
             self.hysteresis_ticks = 1
         if self.queue_max_pending < 0 or self.outbox_cap < 0:
             return "caps cannot be negative"
+        return ""
+
+
+@register_section
+@dataclasses.dataclass
+class ShardingConfig(ConfigSection):
+    """Sharded control plane knobs (scheduler/sharded_plane.py +
+    parallel/topology.py). ``n_shards`` > 1 turns the 15s tick into a
+    fleet round over N scheduler shards — each with its own lease, WAL
+    segment and resident plane — partitioned by consistent hash. A copy of the JAX package's section
+    (defaults and validation); ``python -m evergreen_tpu_torch service
+    --shards N`` reads it off shard 0's segment."""
+
+    section_id = "sharding"
+
+    #: 1 = the classic single-scheduler plane
+    n_shards: int = 1
+    #: stacked multi-device solve: "auto" (stack when the backend has
+    #: >= n_shards devices), "never", "always"
+    stacked_solve: str = "auto"
+    #: ladder-driven distro migration off YELLOW shards
+    rebalance_enabled: bool = True
+    #: whole-distro handoffs a single round may initiate (migrations are
+    #: cheap but re-prime the target's caches — trickle, don't slosh)
+    max_handoffs_per_round: int = 1
+    #: stacked-round barrier timeout before per-shard local solves
+    barrier_timeout_s: float = 30.0
+    # -- process-per-shard runtime (runtime/supervisor.py; `service
+    # -- --shards N`) -------------------------------------------------
+    #: per-shard lease TTL in process mode — ALSO the worst-case fenced
+    #: takeover latency (a replacement steals a dead worker's lease
+    #: only after it goes stale)
+    worker_lease_ttl_s: float = 5.0
+    #: worker heartbeat cadence on the control pipe
+    worker_heartbeat_s: float = 1.0
+    #: missed-heartbeat deadline after which the supervisor kills +
+    #: restarts a worker (hang / pipe-partition detection)
+    worker_heartbeat_deadline_s: float = 5.0
+    #: exponential restart backoff bounds (PR-1 RetryPolicy shape)
+    worker_restart_backoff_s: float = 0.25
+    worker_restart_backoff_max_s: float = 30.0
+    #: how long a worker outlives a dead supervisor (orphan mode: keeps
+    #: its shard lease, ticks locally, waits for adoption on its
+    #: control socket), then drains and releases; 0 restores the old
+    #: exit-on-EOF behavior. This bounds a supervisor outage's blast
+    #: radius: restart within the grace = zero lost work
+    orphan_grace_s: float = 300.0
+    #: worker-side command-staleness deadline (one-way partition
+    #: detection): an ATTACHED worker that hears no supervisor command
+    #: for this long — while its own heartbeats may still be getting
+    #: through — enters orphan mode (bounded by orphan_grace_s) instead
+    #: of trusting the silent channel forever; a resumed command heals
+    #: it in place. Must comfortably exceed the round cadence; 0
+    #: disables the deadline
+    worker_command_silence_s: float = 120.0
+    #: fleet-scope supervisor lease TTL — ALSO the worst-case takeover
+    #: latency after a supervisor death (the successor steals the
+    #: fencing epoch only once the lease goes stale)
+    supervisor_lease_ttl_s: float = 5.0
+    #: solver-leader plane (runtime/solver.py): "auto" serves one
+    #: stacked shard_map solve per fleet round over cross-process
+    #: shared-memory arenas when the backend has >= n_shards devices;
+    #: "never" keeps every worker on its local solve
+    solver_leader: str = "auto"
+    #: solver lease TTL — worst-case window a dead leader's rounds
+    #: degrade to local solves before a successor steals the lease at
+    #: a strictly higher epoch (independent of the supervisor lease:
+    #: data plane and control plane re-elect separately)
+    solver_lease_ttl_s: float = 5.0
+    #: per-round worker wait on the leader's solved block before the
+    #: local-solve fallback (see docs/DEPLOY.md "Solver-leader sizing")
+    solver_timeout_s: float = 10.0
+
+    def validate_and_default(self) -> str:
+        if self.n_shards < 1:
+            return "n_shards must be >= 1"
+        if self.stacked_solve not in ("auto", "never", "always"):
+            return "stacked_solve must be auto/never/always"
+        if self.max_handoffs_per_round < 0:
+            return "max_handoffs_per_round cannot be negative"
+        if self.barrier_timeout_s <= 0:
+            return "barrier_timeout_s must be > 0"
+        if self.worker_lease_ttl_s <= 0:
+            return "worker_lease_ttl_s must be > 0"
+        if self.worker_heartbeat_s <= 0:
+            return "worker_heartbeat_s must be > 0"
+        if self.worker_heartbeat_deadline_s < self.worker_heartbeat_s:
+            return (
+                "worker_heartbeat_deadline_s must be >= "
+                "worker_heartbeat_s"
+            )
+        if self.worker_restart_backoff_s <= 0:
+            return "worker_restart_backoff_s must be > 0"
+        if (self.worker_restart_backoff_max_s
+                < self.worker_restart_backoff_s):
+            return (
+                "worker_restart_backoff_max_s must be >= "
+                "worker_restart_backoff_s"
+            )
+        if self.orphan_grace_s < 0:
+            return "orphan_grace_s cannot be negative"
+        if self.worker_command_silence_s < 0:
+            return "worker_command_silence_s cannot be negative"
+        if self.supervisor_lease_ttl_s <= 0:
+            return "supervisor_lease_ttl_s must be > 0"
+        if self.solver_leader not in ("auto", "never"):
+            return "solver_leader must be auto/never"
+        if self.solver_lease_ttl_s <= 0:
+            return "solver_lease_ttl_s must be > 0"
+        if self.solver_timeout_s <= 0:
+            return "solver_timeout_s must be > 0"
         return ""

@@ -18,8 +18,8 @@ one epoch sequence. ``EpochFencedError`` is the JAX package's error for
 a writer bound to a superseded epoch: the durable store
 (``storage/durable.py``) raises it once a newer epoch is observed, and
 the tick and the sharded plane's handoff read it. Each scheduler shard
-holds its own lease (``shard_lease_path``); the supervisor's lease waits
-for the fleet supervisor.
+holds its own lease (``shard_lease_path``), and the fleet supervisor
+(``runtime/supervisor.py``) holds ``supervisor_lease_path``.
 """
 from __future__ import annotations
 
@@ -54,6 +54,16 @@ def solver_lease_path(data_dir: str) -> str:
     one process per fleet owns the device and serves the stacked solve;
     its epoch stamps every shared-memory publication and result block."""
     return os.path.join(data_dir, "solver.lease")
+
+
+def supervisor_lease_path(data_dir: str) -> str:
+    """Lease-file path for the FLEET SUPERVISOR scope (process-per-shard
+    runtime, runtime/supervisor.py). The supervisor holds no shard data
+    — its lease fences the *control plane*: exactly one supervisor may
+    command the fleet, every command carries the lease's epoch, and
+    workers reject commands stamped with a superseded one
+    (``stale_sup``)."""
+    return os.path.join(data_dir, "supervisor.lease")
 
 
 class FileLease:

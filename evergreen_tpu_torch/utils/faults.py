@@ -33,6 +33,9 @@ firing is counted in ``faults_fired_total{seam}`` and logged. Seams:
   ``snapshot.write``  mid-write of a checkpoint's snapshot (``short``
                       truncates it after the rename, ``bitrot`` flips a
                       byte of it)
+  ``recovery.pass``   the startup recovery pass's entry
+                      (scheduler/recovery.py): a shard worker's boot kill
+                      point (``runtime/worker.py --crash``)
 
 Fault kinds: ``raise`` (the configured exception, default FaultError),
 ``hang``/``delay`` (sleep ``delay_s``), ``crash`` (``os._exit(86)``),
@@ -144,6 +147,11 @@ def install(plan: FaultPlan) -> FaultPlan:
     global _active
     _active = plan
     return plan
+
+
+def active() -> Optional[FaultPlan]:
+    """The installed plan, or None."""
+    return _active
 
 
 def uninstall() -> None:

@@ -745,3 +745,89 @@ def test_card_stacked_round_raises_a_failed_launch(cuda_device, monkeypatch):
     finally:
         for p in planes.values():
             p.close()
+
+
+def _seed_fleet_dir(data_dir, n_shards, problem):
+    """``problem`` over ``n_shards`` shard segments at epoch 0, each distro
+    in the capacity program (a small quota and budget per shard)."""
+    from evergreen_tpu_torch.models import distro as distro_mod
+    from evergreen_tpu_torch.models import host as host_mod
+    from evergreen_tpu_torch.models import task as task_mod
+    from evergreen_tpu_torch.scheduler.sharded_plane import ShardedScheduler
+    from evergreen_tpu_torch.settings import CapacityConfig
+    from evergreen_tpu_torch.storage.durable import DurableStore
+    from evergreen_tpu_torch.storage.store import Store
+
+    distros, tbd, hbd, _, _ = problem
+    src = Store()
+    for d in distros:
+        distro_mod.insert(src, d)
+        ps = dict(distro_mod.coll(src).get(d.id)["planner_settings"], capacity="tpu")
+        distro_mod.coll(src).update(d.id, {"planner_settings": ps})
+    task_mod.insert_many(src, [t for ts in tbd.values() for t in ts])
+    for hs in hbd.values():
+        host_mod.insert_many(src, hs)
+    plane = ShardedScheduler([DurableStore(data_dir, shard_id=k) for k in range(n_shards)],
+                             device="cpu", stacked="never")
+    plane.seed_partition(src)
+    for s in plane.stores:
+        CapacityConfig(pool_quotas={"mock": 60}, fleet_intent_budget=8).set(s)
+    plane.close()
+
+
+@pytest.mark.cuda
+def test_card_process_fleet_writes_the_cpu_documents(cuda_device, tmp_path):
+    """A two-shard process fleet on the card (``FleetSupervisor(...,
+    solver="always")``: two worker processes on the card, the leader
+    here) and the same fleet on the CPU, two rounds with the service's
+    options: every shard's documents equal (intent and event ids,
+    intents' secrets and creation times aside), and the fleet's launches
+    — the leader's here, the workers' from their ``status`` — are one
+    ``fused_distro_stats`` per block solved on the card."""
+    import json
+
+    from evergreen_tpu_torch.runtime.supervisor import FleetSupervisor
+    from evergreen_tpu_torch.storage.durable import DurableStore
+
+    def canon(doc):
+        if "payload" in doc:
+            return dict(doc, payload={c: [canon(d) for d in ds]
+                                      for c, ds in doc["payload"].items()})
+        if doc["_id"].startswith("evt-"):
+            return dict(doc, _id="evt")
+        if doc["_id"].startswith("evg-") and doc.get("status") == "initializing":
+            return dict(doc, _id=doc["_id"].rsplit("-", 1)[0], secret="",
+                        creation_time=0.0)
+        return doc
+
+    problem = generate_problem(8, 1_600, seed=9)
+    docs, launches = {}, {}
+    for key, device in (("cuda", None), ("cpu", "cpu")):
+        d = str(tmp_path / key)
+        _seed_fleet_dir(d, 2, problem)
+        sup = FleetSupervisor(d, 2, ttl_s=2.0, hb_interval_s=0.5, hb_deadline_s=10.0,
+                              recovery_anchor=NOW, solver="always", device=device)
+        before = fused_distro_stats.launches
+        try:
+            sup.start()
+            solves = []
+            for r in range(2):
+                res = sup.round(now=NOW + 15.0 * (r + 1))
+                assert sorted(res) == [0, 1]
+                assert all(v["degraded"] == "" for v in res.values())
+                solves += [v["solve"] for v in res.values()]
+            st = sup.statuses()
+            launches[key] = (fused_distro_stats.launches - before + sum(
+                v["launches"]["fused_distro_stats"] for v in st.values()), solves)
+        finally:
+            sup.stop()
+        stores = [DurableStore(d, shard_id=k) for k in range(2)]
+        for s in stores:
+            s._journal.close()
+        docs[key] = [json.dumps({n: [canon(x) for x in s.collection(n).find()]
+                                 for n in sorted(s._collections) if len(s.collection(n))},
+                                sort_keys=True, default=str) for s in stores]
+    assert docs["cuda"] == docs["cpu"]
+    n, solves = launches["cuda"]
+    assert n == len(solves) == 4 and set(solves) <= {"stacked", "local"}
+    assert launches["cpu"][0] == 0

@@ -282,9 +282,18 @@ def test_tick_constants_match_the_jax_package():
     from evergreen_tpu.scheduler import wrapper as j_wrapper
     from evergreen_tpu.utils import overload as j_overload
 
+    from evergreen_tpu.models import build as j_build
+    from evergreen_tpu.models import cost as j_cost
+    from evergreen_tpu.models import version as j_version
+    from evergreen_tpu.scheduler import recovery as j_recovery
+
     from evergreen_tpu_torch import settings as t_settings
+    from evergreen_tpu_torch.models import build as t_build
+    from evergreen_tpu_torch.models import cost as t_cost
     from evergreen_tpu_torch.models import event as t_event
     from evergreen_tpu_torch.models import task_queue as t_queue
+    from evergreen_tpu_torch.models import version as t_version
+    from evergreen_tpu_torch.scheduler import recovery as t_recovery
     from evergreen_tpu_torch.scheduler import cmp_prioritizer as t_cmp
     from evergreen_tpu_torch.scheduler import persister as t_persister
     from evergreen_tpu_torch.scheduler import wrapper as t_wrapper
@@ -331,13 +340,12 @@ def test_tick_constants_match_the_jax_package():
                 and f.default_factory() == j_f.default_factory()), f.name
     assert {f.name for f in dataclasses.fields(j_wrapper.TickOptions)} - {
         f.name for f in dataclasses.fields(t_wrapper.TickOptions)} == {
-        "planner_version", "underwater_unschedule", "max_intent_hosts"}
+        "planner_version", "max_intent_hosts"}
     assert t_wrapper.TickOptions().async_persist is j_wrapper.TickOptions().async_persist is False
     assert {f.name for f in dataclasses.fields(j_wrapper.TickResult)} - {
         f.name for f in dataclasses.fields(t_wrapper.TickResult)} == {"trace_id"}
     # what the port's tick fixes in place of those options
     assert j_wrapper.TickOptions().planner_version == t_globals.PlannerVersion.TPU.value
-    assert j_wrapper.TickOptions().underwater_unschedule is True
     assert j_wrapper.TickOptions().max_intent_hosts == t_globals.MAX_INTENT_HOSTS_IN_FLIGHT
     for name in ("MAX_TASK_PRIORITY", "COMMIT_QUEUE_PRIORITY_BOOST",
                  "UNDERWATER_UNSCHEDULE_THRESHOLD_S", "GITHUB_MERGE_REQUESTER",
@@ -479,6 +487,105 @@ def test_durable_store_constants_match_the_jax_package():
         assert getattr(t_i, "legacy", None) == getattr(j_i, "legacy", None), name
 
 
+def test_fleet_runtime_constants_match_the_jax_package():
+    """The fleet runtime's and the recovery pass's constants, paths,
+    sections and instruments (kind, name, labels, help, legacy) are the
+    JAX package's: the protocol's exit codes, the supervisor's backoff
+    reset and synthetic exit, ``ShardingConfig``'s defaults and
+    validation, the recovery heartbeat window and restart limit,
+    ``CloudHostStatus``, the lease and socket paths, the worker's flags
+    (the port adds ``--device``, leaves out the bench flags)."""
+    import random
+
+    from evergreen_tpu import settings as j_settings
+    from evergreen_tpu.cloud import manager as j_manager
+    from evergreen_tpu.models import cost as j_cost
+    from evergreen_tpu.runtime import manifest as j_manifest
+    from evergreen_tpu.runtime import protocol as j_protocol
+    from evergreen_tpu.runtime import supervisor as j_supervisor
+    from evergreen_tpu.runtime import worker as j_worker
+    from evergreen_tpu.scheduler import recovery as j_recovery
+    from evergreen_tpu.storage import lease as j_lease
+    from evergreen_tpu.units import host_jobs as j_host_jobs
+    from evergreen_tpu.units import task_jobs as j_task_jobs
+    from evergreen_tpu.utils import retry as j_retry
+
+    from evergreen_tpu_torch import settings as t_settings
+    from evergreen_tpu_torch.cloud import manager as t_manager
+    from evergreen_tpu_torch.models import cost as t_cost
+    from evergreen_tpu_torch.runtime import manifest as t_manifest
+    from evergreen_tpu_torch.runtime import protocol as t_protocol
+    from evergreen_tpu_torch.runtime import supervisor as t_supervisor
+    from evergreen_tpu_torch.runtime import worker as t_worker
+    from evergreen_tpu_torch.scheduler import recovery as t_recovery
+    from evergreen_tpu_torch.storage import lease as t_lease
+    from evergreen_tpu_torch.units import host_jobs as t_host_jobs
+    from evergreen_tpu_torch.units import task_jobs as t_task_jobs
+    from evergreen_tpu_torch.utils import retry as t_retry
+
+    for name in ("EXIT_CRASHED", "EXIT_LOST", "EXIT_FENCED"):
+        assert getattr(t_protocol, name) == getattr(j_protocol, name), name
+    assert t_supervisor.EXIT_GONE == j_supervisor.EXIT_GONE
+    assert (t_supervisor.FleetSupervisor.BACKOFF_RESET_AFTER_S
+            == j_supervisor.FleetSupervisor.BACKOFF_RESET_AFTER_S)
+    assert t_recovery.RECOVERY_HEARTBEAT_TIMEOUT_S == j_recovery.RECOVERY_HEARTBEAT_TIMEOUT_S
+    assert t_host_jobs.MAX_STRANDED_TASK_RESTARTS == j_host_jobs.MAX_STRANDED_TASK_RESTARTS
+    assert t_task_jobs.ARCHIVE_COLLECTION == j_task_jobs.ARCHIVE_COLLECTION
+    assert t_cost.TASK_COSTS_COLLECTION == j_cost.TASK_COSTS_COLLECTION
+    statuses = {k: v for k, v in vars(j_manager.CloudHostStatus).items()
+                if k.isupper()}
+    assert statuses == {k: v for k, v in vars(t_manager.CloudHostStatus).items()
+                        if k.isupper()}
+    assert t_lease.supervisor_lease_path("/d") == j_lease.supervisor_lease_path("/d")
+    assert t_manifest.socket_path("/d", 3) == j_manifest.socket_path("/d", 3)
+    # ShardingConfig: the section id, every default, and the validation
+    assert t_settings.ShardingConfig.section_id == j_settings.ShardingConfig.section_id
+    assert dataclasses.asdict(t_settings.ShardingConfig()) == dataclasses.asdict(
+        j_settings.ShardingConfig())
+    for bad in (dict(n_shards=0), dict(stacked_solve="x"),
+                dict(worker_heartbeat_deadline_s=0.5), dict(solver_leader="always"),
+                dict(worker_restart_backoff_max_s=0.1), dict(orphan_grace_s=-1.0),
+                dict(solver_timeout_s=0.0), {}):
+        assert (t_settings.ShardingConfig(**bad).validate_and_default()
+                == j_settings.ShardingConfig(**bad).validate_and_default()), bad
+    # the retry policy's backoff ladder, jitter included
+    for kw in ({}, dict(jitter=0.0), dict(full_jitter=True),
+               dict(base_backoff_s=0.25, max_backoff_s=30.0, jitter=0.25)):
+        t_p, j_p = t_retry.RetryPolicy(**kw), j_retry.RetryPolicy(**kw)
+        t_rng, j_rng = random.Random(7), random.Random(7)
+        assert [t_p.backoff_s(a, t_rng) for a in range(8)] == [
+            j_p.backoff_s(a, j_rng) for a in range(8)], kw
+    # the retry loop and its fields wait for their adopters
+    assert not hasattr(t_retry.RetryPolicy, "call") and hasattr(j_retry.RetryPolicy, "call")
+    assert {f.name for f in dataclasses.fields(j_retry.RetryPolicy)} - {
+        f.name for f in dataclasses.fields(t_retry.RetryPolicy)} == {"deadline_s", "retry_on"}
+    # the worker's flags: JAX's, less bench mode, plus --device
+    def flags(parser):
+        return {a.dest: a.default for a in parser._actions if a.dest != "help"}
+
+    j_flags = {k: v for k, v in flags(j_worker._build_parser()).items()
+               if not k.startswith("bench")}
+    assert flags(t_worker._build_parser()) == {**j_flags, "device": None}
+    for t_mod, j_mod, names in (
+        (t_supervisor, j_supervisor, (
+            "FLEET_RESTARTS", "FLEET_HB_MISSES", "FLEET_ROUNDS", "FLEET_HANDOFFS",
+            "FLEET_ROUND_MS", "FLEET_WORKERS_UP", "FLEET_ADOPTIONS", "FLEET_ORPHANED",
+            "FLEET_STALE_REJECTS", "FLEET_SUP_EPOCH", "FLEET_CMD_SILENCE",
+            "IPC_STALE_REPLIES")),
+        (t_recovery, j_recovery, ("RECOVERY_RECONCILED", "RECOVERY_PROVIDER_ERRORS")),
+        (t_host_jobs, j_host_jobs, ("RECOVERY_STRANDED",)),
+    ):
+        for name in names:
+            t_i, j_i = getattr(t_mod, name), getattr(j_mod, name)
+            assert (t_i.kind, t_i.name, t_i.labelnames, t_i.help) == (
+                j_i.kind, j_i.name, j_i.labelnames, j_i.help), name
+            t_l, j_l = getattr(t_i, "legacy", None), getattr(j_i, "legacy", None)
+            if callable(j_l):
+                assert t_l({"outcome": "reset"}) == j_l({"outcome": "reset"}), name
+            else:
+                assert t_l == j_l, name
+
+
 def test_no_port_source_line_imports_jax():
     """No line of the port's sources or of chip_smoke.py imports JAX or
     the JAX package (the import check below runs the modules; this one
@@ -512,9 +619,18 @@ def _copied_dataclasses():
 
     from evergreen_tpu.models import event as j_event
 
+    from evergreen_tpu.models import build as j_build
+    from evergreen_tpu.models import cost as j_cost
+    from evergreen_tpu.models import version as j_version
+    from evergreen_tpu.scheduler import recovery as j_recovery
+
     from evergreen_tpu_torch import settings as t_settings
+    from evergreen_tpu_torch.models import build as t_build
+    from evergreen_tpu_torch.models import cost as t_cost
     from evergreen_tpu_torch.models import event as t_event
     from evergreen_tpu_torch.models import task_queue as t_queue
+    from evergreen_tpu_torch.models import version as t_version
+    from evergreen_tpu_torch.scheduler import recovery as t_recovery
 
     pairs = [
         (t_distro, j_distro, ("PlannerSettings", "HostAllocatorSettings",
@@ -528,7 +644,11 @@ def _copied_dataclasses():
         (t_capacity, j_capacity, ("CapacityInputs",)),
         (t_settings, j_settings, ("ServiceFlags", "CapacityConfig",
                                   "OverridesConfig", "ReleaseModeConfig",
-                                  "OverloadConfig")),
+                                  "OverloadConfig", "ShardingConfig")),
+        (t_build, j_build, ("Build",)),
+        (t_version, j_version, ("Version",)),
+        (t_cost, j_cost, ("CostConfig",)),
+        (t_recovery, j_recovery, ("RecoveryReport",)),
         (t_serial, j_serial, ("RunningTaskEstimate", "Unit",
                               "AllocatorInput")),
     ]

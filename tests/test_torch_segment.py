@@ -12,6 +12,8 @@ to 20 distros × 5,000 tasks, and edge cases: empty segments, an input
 that is all padding, and one segment longer than the kernel's staging
 tile. The card tests of the kernel itself are in tests/test_torch_card.py.
 """
+import os
+
 import numpy as np
 import pytest
 
@@ -221,3 +223,64 @@ def test_sweep_variants_name_the_sources_constants():
         threads, piece = v["SEGMENT_SUM_THREADS"], v["SEGMENT_SUM_PIECE"]
         spec = piece + threads
         assert spec <= threads * v["SEGMENT_SUM_STAGE_UNROLL"] and spec <= TILE_FLOATS // 4
+
+
+def _stub_compiler(tmp_path, rc):
+    """An ``nvcc`` stand-in that counts its runs in ``calls`` and, when
+    ``rc`` is 0, writes its ``-o`` output after a pause long enough for a
+    second builder to arrive meanwhile."""
+    stub = tmp_path / "nvcc"
+    stub.write_text(
+        "#!/bin/sh\n"
+        f"echo run >> {tmp_path / 'calls'}\n"
+        "echo compiler report $$\n"
+        "sleep 1\n"
+        f"[ {rc} -eq 0 ] || exit {rc}\n"
+        'while [ "$1" != "-o" ]; do shift; done\n'
+        'echo lib > "$2"\n')
+    stub.chmod(0o755)
+    return str(stub)
+
+
+def _build_in(tmp_path, stub):
+    """A fresh interpreter building ``distro_stats`` into ``tmp_path/build``
+    with the stub compiler; returns its process."""
+    import subprocess
+    import sys
+
+    code = (
+        "from evergreen_tpu_torch.ops import _build\n"
+        f"_build.BUILD_DIR = {str(tmp_path / 'build')!r}\n"
+        f"_build._nvcc = lambda: {stub!r}\n"
+        "try:\n"
+        "    _build.build(['distro_stats'])\n"
+        "except _build.KernelError as exc:\n"
+        "    print(exc)\n"
+        "    raise SystemExit(3)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return subprocess.Popen([sys.executable, "-c", code], cwd=root,
+                            stdout=subprocess.PIPE, text=True)
+
+
+@pytest.mark.parametrize("rc", [0, 1], ids=["built", "failed"])
+def test_concurrent_builds_compile_each_source_once(rc, tmp_path):
+    """Two processes that build one source at once run the compiler once
+    when it succeeds (the second finds the library under the lock), and a
+    failed build raises ``KernelError`` in each with that build's own
+    compiler report, never another process's."""
+    stub = _stub_compiler(tmp_path, rc)
+    procs = [_build_in(tmp_path, stub) for _ in range(2)]
+    outs = [p.communicate(timeout=120)[0] for p in procs]
+    runs = (tmp_path / "calls").read_text().split()
+    if rc == 0:
+        assert [p.returncode for p in procs] == [0, 0]
+        assert len(runs) == 1
+        libs = [f for f in os.listdir(tmp_path / "build") if f.endswith(".so")]
+        assert len(libs) == 1
+    else:
+        assert [p.returncode for p in procs] == [3, 3]
+        assert len(runs) == 2  # the second builder found no library
+        reports = [line for out in outs for line in out.splitlines()
+                   if line.startswith("compiler report")]
+        assert len(reports) == 2 and reports[0] != reports[1]
+        assert all("nvcc failed for distro_stats" in out for out in outs)
