@@ -34,7 +34,9 @@ raises and exits non-zero):
    steps, integer outputs equal to the CPU stack, and both kernels held
    against their plain versions on each block as in phase 2; then one
    round served by a ``SolverService`` on the card to four
-   ``SolverClient``s in ``spawn`` worker processes, three more to them
+   ``SolverClient``s in ``spawn`` worker processes (started before the
+   backend probe, so that their imports overlap the probe and the build;
+   phase 1 waits for them before its first profile), three more to them
    and three to clients in threads (seven each until phase 11 needed the
    time), every
    round and client "stacked", every block byte-identical to the
@@ -68,8 +70,10 @@ raises and exits non-zero):
    ``now + 15``, then one tick with a fault at ``scheduler.solve`` and
    one with the solve breaker held open. After each tick every document
    the tick writes (queues, secondary queues, tasks, hosts with the
-   intents, events, shed records) equals the CPU's, as do the
-   ``TickResult`` counts and the persister's write shapes; the solve
+   intents, events, shed records) equals the CPU's, as do the span
+   documents (``span_json``: ids, times and threads masked), the
+   ``TickResult`` counts and the persister's write shapes, and the
+   tick's span tree is the cold tick's (``cold_tree_names``); the solve
    ticks are planned by the card with no degradation and launch exactly
    1 ``fused_distro_stats`` and 53 ``segment_sum`` each, the two
    degraded ticks fall back to the serial oracle and launch nothing.
@@ -77,60 +81,87 @@ raises and exits non-zero):
    (``time.time``) and event ids are made the same for both stores;
    then the wall time of each phase of the two solve ticks, and the
    garbage collector's share of it. Each tick follows a full
-   ``gc.collect()``, and the phase runs again on fresh stores with the
-   CPU's store ticked first at each step, its two solve ticks only;
+   ``gc.collect()`` (a second run on fresh stores with the CPU's store
+   ticked first was cut when phase 8's loop needed the time);
 8. the service's tick (``TickOptions(use_cache=True)``): config 3 in
    three stores (warm on the card, warm on the CPU, cold on the card),
-   five ticks with churn, a solve fault and a distro-set change, every
-   document equal across the stores after each (``service_phase``);
+   six ticks with churn, a solve fault, a distro-set change and two
+   quiet ticks, the last with tracing off (the quiet tick's wall with
+   tracing on and off), every document equal across the stores after
+   each, the warm stores' span documents and each tick's span tree equal
+   (the CPU publish's ``arena_lease`` aside), the cold store's tree a
+   cold tick's (``service_phase``); then the loop (``service_loop``):
+   two rounds of an agent pass (``agent_pass``: finish every task in
+   flight through ``mark_end``, pull for every free host through a
+   ``DispatcherService``) and a tick, the (host, task) pairs and every
+   document equal after each pass and tick (the cold store's queue
+   infos in name order, ``infos_by_name``), the loop ticks' launches
+   exact; the warm card store's first loop tick runs its solve under the
+   device profiler (``TracerConfig.xla_profile_dir``): its Chrome trace
+   names both kernels, their device time fits in the ``solve`` span, the
+   next tick into that directory writes no second trace, and the next
+   pass's ``dispatch_assign`` spans parent into that tick's trace;
 9. the sharded plane: config 3 split by ``seed_partition`` over four
    shard stores on the one card, in three planes — (a) on the card with
    ``stacked="always"`` (every block of a round in one stacked solve),
    (b) on the card with ``stacked="auto"`` (local on one card: each
    shard ticks through its own resident plane and mirror), (c) on the
-   CPU with ``stacked="never"`` — for four rounds (prime, churn, shard
+   CPU with ``stacked="never"`` — for four rounds: prime, churn, shard
    0 held at YELLOW so one affinity group migrates, and the round after
-   the handoff, whose card planes tick under torch.profiler: device busy
-   time, idle share and the host's time in CUDA synchronisation; two
-   quiet rounds before the profiled one were cut to make room for phase
-   10, and the quiet round before the YELLOW one for phase 11). After each round every shard store's
-   documents are equal across the planes (intent and event ids
-   canonicalised: which shard's tick draws which id depends on thread
-   order), no document has two owners, the migrations are equal, plane
+   the handoff, whose card planes tick under torch.profiler (device busy
+   time, idle share, the host's time in CUDA synchronisation). Two quiet
+   rounds before the profiled one were cut to make room for phase 10,
+   and the quiet round before the YELLOW one for phase 11. After each
+   round every shard store's documents are equal across the planes
+   (intent and event ids canonicalised: which shard's tick draws which
+   id depends on thread order), the local planes' span documents equal
+   (plane (a)'s, whose stacked rounds pack fresh, held by their tick
+   count), no document has two owners, the migrations are equal, plane
    (a)'s mode is ``PLANE_A_MODES``'s (round 1 local, round 2 stacked or
    local where some shard's dims outgrew the floor, stacked from round
    3 on), and each plane launched the kernels once per block solved;
-   then, without
-   intents, a fresh plane (a)'s merged queues equal a single store's
-   card tick, and a failed launch inside its stacked solve raises out of
-   ``tick()`` with no local solve;
+   then an agent pull for every free host through
+   ``assign_next_available_task_fleet`` on planes (a) and (c), the
+   pairs and documents equal (``fleet_pull``); then, without intents, a
+   fresh plane (a)'s merged queues equal a single store's card tick, and
+   a failed launch inside its stacked solve raises out of ``tick()``
+   with no local solve;
 10. the service's tick as ``units/crons.py`` runs it
    (``TickOptions(use_cache=True, async_persist=True,
    solve_deadline_s=10.0, tick_budget_s=12.0)``) on durable stores
    (``durable_phase``): config 3 less ``d199`` in (a) a ``DurableStore``
    on the card under a renewing ``FileLease``, (b) the same on the CPU,
    (c) the in-memory card store of phase 8; ticks prime, churn, quiet,
-   after each every document equal across the three, one WAL group
-   frame a tick in (a) and (b) with equal records; then (a)'s and (b)'s
+   after each every document equal across the three (the span documents
+   as ``span_json`` masks them), one WAL group frame a tick in (a) and
+   (b) with equal records (span records masked, the CPU's
+   ``arena_lease`` ones aside: ``canon_record``); then (a)'s and (b)'s
    directories copied without closing (a crash) and replayed, a churn
    tick on (a)'s copy on the card (a cold plane, a full mirror upload),
    on (b)'s on the CPU and on (a), (b), (c): a replayed store's fresh
    persister rewrites the queue documents a live one skips, so the two
    copies are held equal with every field and WAL record, and to the
-   live stores without the queue documents' write stamps; a copy whose
+   live stores without the queue documents' write stamps and the span
+   attributes a fresh store records otherwise (``FRESH_ATTRS``); a copy whose
    WAL is cut inside tick 4's frame reopens to (a) before tick 4; a
    thief takes (a)'s lease, (a)'s tick is ``"fenced"`` (no launch, no
-   WAL byte, no document changed, the plane dropped), and the thief's
+   WAL byte, no document changed but the fenced tick's own root span in
+   memory, the plane dropped), and the thief's
    store ticks on the card beside (b) and (c), held to them without the
    queue documents' write stamps (its persister is fresh), then
    checkpoints (the thief's CPU twin on a copy of (b)'s directory was
    cut when phase 11 needed the time); then a
    durable fleet (``ShardedScheduler.build(4, data_dir=...,
-   stacked="always")`` on the card, its modes held as plane (a)'s)
-   against an in-memory CPU plane, four rounds (a handoff in the
-   third), a crash copy reopened by ``open_fleet`` on the card (its CPU
-   twin was cut for phase 11's time), and a fifth round, documents
-   equal; prints every tick's
+   stacked="always")`` on the card, its modes held to ``FLEET_MODES`` as
+   phase 9 holds plane (a)'s)
+   against an in-memory CPU plane, seeded in one group frame a shard,
+   three rounds (prime; churn with shard 0 at YELLOW, a handoff, stacked
+   or grown past the floor; a quiet round that must stack; the round
+   between the churn and the YELLOW one was cut when phase 8's loop
+   needed the time), a crash copy reopened by ``open_fleet`` on the card
+   (its CPU twin was cut for phase 11's time), and a fourth round,
+   documents equal, each shard's tick spans counted equal; prints every
+   tick's
    phases with ``wal_commit``, the frame writes, the barrier waits, WAL
    bytes, replay, checkpoint and ``open_fleet`` ms;
 11. the process-per-shard fleet (``process_fleet_phase``): config 3
@@ -144,18 +175,26 @@ raises and exits non-zero):
    hello at epoch 1) and leads their stacked solves; six rounds with the
    service's options: prime, two quiet rounds, ``migrate`` over the
    control protocol, the round after it, shard 2 drained and SIGKILLed,
-   the watchdog's restart at epoch 2 (replay and recovery again), two
-   more rounds, ``stop(graceful=True)``. Checked: the epochs, each
+   the watchdog's restart at epoch 2 (replay and recovery again), a
+   round, ``agent_sim`` (each worker finishes its tasks in flight and
+   dispatches every free host), a round, ``stop(graceful=True)``. This
+   is not what ``service --shards 4`` runs on one card: its
+   ``solver_leader`` ("auto") counts one device against four shards and
+   elects no leader, so its workers solve locally. Checked: the epochs, each
    recovery's counts against a CPU twin (the same sequence in-process in
    a process of its own on a copy of the seeded directory), the modes
    (``PROC_MODES``), the leader's launches per stacked block and each
    worker's per local solve (its ``status`` counters, the killed worker's
-   read before the kill), every shard's documents against the twin's,
-   one owner per document, every lease released; prints the start, each
+   read before the kill), every shard's documents against the twin's
+   (which replays the agent pass; span documents masked), each worker's
+   ``dispatched`` and ``unfinished`` against the twin's, one
+   ``fleet.round`` span a round on the supervisor's front store, one
+   owner per document, every lease released; prints the start, each
    recovery, each round and shard tick, the leader's serves, the
    takeover and the stop in ms;
-12. a JSON line of the kernels (launches: phases 7–11, by path; the
-   other phases check theirs on lines of their own), the card's line,
+12. a JSON line of the kernels (launches: phases 7–11, by path, phase
+   8's loop as the path "loop"; the other phases check theirs on lines
+   of their own), the card's line,
    and the last line ``{"ok": true, "device": {...}}``.
 
 Before phase 1 the backend probe (``utils/torchenv.py``) must find the
@@ -195,6 +234,9 @@ SHARDS = 4
 SHARD_PAGES = (48, 24, 0, 0)
 THREAD_ROUNDS = 3
 ROUND_TIMEOUT_S = 90.0
+#: how long phase 4's worker processes wait for their snapshot, handed
+#: over when phase 4 begins (phases 1-3 take about half a minute)
+WORKER_WAIT_S = 600.0
 SUM_RTOL = 1e-5
 #: the capacity relaxation (Newton steps with pow and division) and the
 #: affinity block are the only f32 outputs the card may round otherwise
@@ -220,8 +262,13 @@ SS_VARIANTS = [dict(SEGMENT_SUM_THREADS=t, SEGMENT_SUM_PIECE=p,
                    (256, 768, 4, 2), (256, 1024, 5, 4), (256, 1280, 6, 4), (256, 512, 3, 1))]
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the run's log, after the wall seconds since the
+    script started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -561,16 +608,24 @@ def digest(out: dict) -> str:
     return h.hexdigest()
 
 
-def worker_loop(here, data_dir, shard, snap, cmds, replies):
-    """One shard's worker process: register its segment in the fleet
-    manifest, then for each (epoch, seq, timeout) on ``cmds`` publish
-    through ``SolverClient`` and wait for the leader's block, replying
-    with the outcome and the block's digest; None ends it. It never
-    touches the card: a fallback would solve on the CPU and report
-    "local"."""
+def worker_loop(here, data_dir, shard, cmds, replies):
+    """One shard's worker process: say it is ready once its imports are
+    done (the process starts before the backend probe, so that they
+    overlap the probe and the build), take its shard's snapshot off
+    ``cmds`` (None before it ends the process), register its
+    segment in the fleet manifest, then for each (epoch, seq, timeout) on
+    ``cmds`` publish through ``SolverClient`` and wait for the leader's
+    block, replying with the outcome and the block's digest; None ends
+    it. It never touches the card: a fallback would solve on the CPU and
+    report "local"."""
     sys.path.insert(0, here)
     from evergreen_tpu_torch.runtime import manifest
     from evergreen_tpu_torch.runtime.solver import SolverClient
+
+    replies.put(("ready", shard))
+    snap = cmds.get(timeout=WORKER_WAIT_S)
+    if snap is None:
+        return
 
     def on_change(name, nbytes):
         manifest.write_entry(data_dir, shard, pid=os.getpid(), sock="",
@@ -592,11 +647,48 @@ def worker_loop(here, data_dir, shard, snap, cmds, replies):
         manifest.remove_entry(data_dir, shard)
 
 
-def stacked_phase(torch, np, problem, cpu_out_tol, profile_dir) -> None:
-    """Phase 4."""
+def start_stacked_workers() -> dict:
+    """Phase 4's ``SHARDS`` worker processes (``worker_loop``), started
+    with their queues and the leader's data directory;
+    ``wait_stacked_workers`` waits for their imports, ``stacked_phase``
+    hands each its snapshot."""
     import multiprocessing
-    import shutil
     import tempfile
+
+    ctx = multiprocessing.get_context("spawn")
+    data_dir = tempfile.mkdtemp(prefix="evg-chip-smoke-")
+    replies = ctx.Queue()
+    cmds = [ctx.Queue() for _ in range(SHARDS)]
+    procs = [ctx.Process(target=worker_loop, args=(HERE, data_dir, k, cmds[k], replies),
+                         daemon=True) for k in range(SHARDS)]
+    for p in procs:
+        p.start()
+    return dict(data_dir=data_dir, replies=replies, cmds=cmds, procs=procs,
+                t0=time.perf_counter())
+
+
+def wait_stacked_workers(workers) -> float:
+    """Wait until every phase 4 worker has done its imports (each says
+    "ready"), so that none imports while the phases after phase 1 time
+    and profile the card; returns the seconds waited."""
+    t0 = time.perf_counter()
+    ready = set()
+    while len(ready) < SHARDS:
+        try:
+            op, shard = workers["replies"].get(timeout=1.0)
+        except Exception:  # queue.Empty: see whether a worker died
+            check(all(p.is_alive() for p in workers["procs"]),
+                  f"a worker exited: {[p.exitcode for p in workers['procs']]}")
+            check(time.perf_counter() - t0 < WORKER_WAIT_S, "workers never ready")
+            continue
+        check(op == "ready", f"worker {shard} said {op!r} before its snapshot")
+        ready.add(shard)
+    return time.perf_counter() - t0
+
+
+def stacked_phase(torch, np, problem, cpu_out_tol, profile_dir, workers) -> None:
+    """Phase 4; ``workers`` from ``start_stacked_workers``."""
+    import shutil
     import threading
 
     from evergreen_tpu_torch.ops.distro_stats import fused_distro_stats
@@ -690,22 +782,19 @@ def stacked_phase(torch, np, problem, cpu_out_tol, profile_dir) -> None:
 
     # (b) the solver-leader plane: rounds to worker processes, then to
     # clients in threads
-    data_dir = tempfile.mkdtemp(prefix="evg-chip-smoke-")
+    data_dir, replies = workers["data_dir"], workers["replies"]
+    cmds, procs, clients = workers["cmds"], workers["procs"], {}
     svc = SolverService(data_dir, SHARDS, lease_ttl_s=5.0,
                         timeout_s=ROUND_TIMEOUT_S)
-    procs, cmds, clients = [], [], {}
     want_digest = {k: digest(stack[k]) for k in stack}
     try:
         check(reap_orphan_segments(data_dir, SHARDS) == [], "orphan segments")
         check(svc.acquire(timeout_s=30.0), "solver lease not acquired")
-        ctx = multiprocessing.get_context("spawn")
-        replies = ctx.Queue()
-        cmds = [ctx.Queue() for _ in range(SHARDS)]
+        check(all(p.is_alive() for p in procs),
+              f"a worker process exited: {[p.exitcode for p in procs]}")
         t0 = time.perf_counter()
-        procs = [ctx.Process(target=worker_loop, args=(
-            HERE, data_dir, k, subs[k], cmds[k], replies)) for k in range(SHARDS)]
-        for p in procs:
-            p.start()
+        for k, q in enumerate(cmds):
+            q.put(subs[k])
         spawn_ms = []
         for r in range(1 + THREAD_ROUNDS):
             stamp = svc.stamp()
@@ -736,7 +825,9 @@ def stacked_phase(torch, np, problem, cpu_out_tol, profile_dir) -> None:
                 log(f"stacked (b): first round to {SHARDS} spawn worker processes "
                     f"ended '{outcome}', every worker 'stacked', blocks "
                     f"byte-identical to (a), launches {got} (exact); "
-                    f"{time.perf_counter() - t0:.2f} s wall with the workers' start")
+                    f"{time.perf_counter() - t0:.2f} s wall from the snapshots' "
+                    f"handover (the processes started "
+                    f"{t0 - workers['t0']:.2f} s before it, before the probe)")
         for q in cmds:
             q.put(None)
         for p in procs:
@@ -1215,6 +1306,115 @@ TICK_PHASES = ("delta_drain", "pack", "solve", "unpack", "cmp", "capacity",
 TICK_COLLECTIONS = ("task_queues", "task_secondary_queues", "tasks", "hosts",
                     "events", "overload_sheds")
 SHAPES = ("skipped", "patched", "spliced", "rewritten")
+#: what two runs of the same tick cannot agree on in a span document: its
+#: ids (each process numbers its spans), its times, and the thread; and
+#: the span attributes that are wall times
+SPAN_MASK = ("_id", "parent", "trace_root", "started_at", "duration_ms", "thread")
+SPAN_TIME_ATTRS = ("snapshot_ms", "solve_ms", "total_ms")
+#: what a store whose resident plane and persister are fresh (reopened, or
+#: a new lease holder's) records otherwise than a live store: the plane
+#: rebuilds where the live one applies deltas, the persister rewrites what
+#: the live one patches or skips
+FRESH_ATTRS = ("rebuild_reason", "skip", "patch", "splice", "rewrite")
+#: a tick's spans: the root, its phases, the resident plane's
+TICK_SPANS = ("tick", "delta_drain", "resident_apply", "pack", "arena_lease", "solve",
+              "unpack", "persist", "tick_stats", "wal_commit")
+
+
+def is_span(doc) -> bool:
+    return "trace_root" in doc and "component" in doc
+
+
+def canon_span(doc, live=True) -> dict:
+    """A span document with ``SPAN_MASK`` and the time attributes masked,
+    and ``FRESH_ATTRS`` too unless ``live``."""
+    attrs = {k: v for k, v in doc["attributes"].items()
+             if k not in SPAN_TIME_ATTRS and (live or k not in FRESH_ATTRS)}
+    return dict({k: v for k, v in doc.items() if k not in SPAN_MASK}, attributes=attrs)
+
+
+def span_json(store, live=True) -> str:
+    """The store's ``spans`` documents in store order, masked
+    (``canon_span``), without ``arena_lease``: the CPU publish leases a
+    transfer arena, the card's goes through the device mirror and leases
+    none."""
+    return json.dumps([canon_span(d, live) for d in store.collection("spans").find()
+                       if d["name"] != "arena_lease"],
+                      sort_keys=True, separators=(",", ":"), default=str)
+
+
+def tree_shape(store, trace_id, lease=True):
+    """One trace's span tree as nested [span masked, children sorted]
+    (``utils/tracing.py::trace_tree``), ``arena_lease`` dropped unless
+    ``lease``."""
+    from evergreen_tpu_torch.utils.tracing import trace_tree
+
+    def shape(node):
+        kids = [shape(c) for c in node["children"] if lease or c["name"] != "arena_lease"]
+        span = {k: v for k, v in node.items() if k != "children"}
+        return [json.dumps(canon_span(span), sort_keys=True, default=str),
+                sorted(kids, key=json.dumps)]
+
+    tree = trace_tree(store, trace_id)
+    check(tree is not None, f"trace {trace_id!r} is unknown")
+    return sorted((shape(r) for r in tree["roots"]), key=json.dumps)
+
+
+def cold_tree_names(degraded="") -> list:
+    """The span names of a cold tick's tree: every phase on a solve tick;
+    no ``unpack`` when the solve raised; no ``pack`` or ``solve`` either
+    when the breaker was open."""
+    skip = {"resident_apply", "arena_lease"}
+    if degraded == "solve-failed":
+        skip.add("unpack")
+    elif degraded == "breaker-open":
+        skip.update(("pack", "solve", "unpack"))
+    return sorted(n for n in TICK_SPANS if n not in skip)
+
+
+def tree_names(shape) -> list:
+    """The span names of a ``tree_shape``, sorted."""
+    out = []
+
+    def walk(node):
+        out.append(json.loads(node[0])["name"])
+        for c in node[1]:
+            walk(c)
+
+    for r in shape:
+        walk(r)
+    return sorted(out)
+
+
+def agent_pass(store, now) -> tuple:
+    """The fleet worker's harness agent (``ShardWorker.op_agent_sim``) on
+    ``store``: finish every task in flight (``mark_task_started``, then
+    ``mark_end`` with success), then pull for every free host in id order
+    through a fresh ``DispatcherService``. Returns (the finished ids,
+    the (host, task) pairs, the pulls' wall ms, the finishing's wall
+    ms)."""
+    from evergreen_tpu_torch.dispatch.assign import assign_next_available_task
+    from evergreen_tpu_torch.dispatch.dag_dispatcher import DispatcherService
+    from evergreen_tpu_torch.models import host as host_mod
+    from evergreen_tpu_torch.models.lifecycle import mark_end, mark_task_started
+
+    tasks = store.collection("tasks")
+    finished = sorted(d["_id"] for d in tasks.find(
+        lambda d: d["status"] in ("dispatched", "started")))
+    t0 = time.perf_counter()
+    for tid in finished:
+        mark_task_started(store, tid, now=now)
+        mark_end(store, tid, "success", now=now)
+    finish_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    svc = DispatcherService(store)
+    hosts = sorted((h for h in host_mod.find(store)
+                    if h.can_run_tasks() and not h.running_task), key=lambda h: h.id)
+    pairs = []
+    for h in hosts:
+        t = assign_next_available_task(store, svc, h, now=now)
+        pairs.append((h.id, t.id if t is not None else None))
+    return finished, pairs, (time.perf_counter() - t0) * 1e3, finish_ms
 
 
 def seed_tick_store(store, problem, only=None) -> None:
@@ -1398,6 +1598,10 @@ def tick_phase(torch, np, problem, card="cuda", card_first=True, depth=None) -> 
                 check(g == w, f"{label}: {name} document {w.get('_id')!r} differs "
                       f"from the CPU's")
             n_docs += len(got)
+        check(span_json(stores[card]) == span_json(stores["cpu"]),
+              f"{label}: the span documents differ from the CPU's")
+        names = tree_names(tree_shape(stores[card], r.trace_id))
+        check(names == cold_tree_names(degraded), f"{label}: the tick's span tree {names}")
         want_launches = (expected_launches([CapacityConfig().iterations])
                          if planner == "tpu" and on_card else
                          {"fused_distro_stats": 0, "segment_sum": 0})
@@ -1431,6 +1635,16 @@ def tick_phase(torch, np, problem, card="cuda", card_first=True, depth=None) -> 
     return total
 
 
+#: phase 8: the quiet tick run with tracing off, and the loop's rounds of
+#: an agent pass and a tick
+QUIET_UNTRACED = "6 (quiet, tracing off)"
+#: the hand kernels' names in a profiler trace (their __global__ names)
+HAND_KERNELS = ("fused_distro_stats_kernel", "segment_sum_kernel")
+LOOP_ROUNDS = 2
+#: phase 8, after the loop: quiet ticks of the warm card store with
+#: tracing on (True) and off, in an ABBA order so a drift of the host
+#: falls on both sides alike
+TRACING_ORDER = (True, False, False, True, True, False, False, True)
 #: phase 8: the three stores (name, on the card, TickOptions.use_cache),
 #: ticked in this order at each step
 SERVICE_STORES = (("card warm", True, True), ("CPU warm", False, True),
@@ -1541,13 +1755,15 @@ def slab_stats_row(torch, np, snap, cold, sm_mhz) -> dict:
     return row
 
 
-def service_phase(torch, np, problem, sm_mhz, card="cuda") -> dict:
+def service_phase(torch, np, problem, sm_mhz, card="cuda", root=None) -> dict:
     """Phase 8: the service's tick (``TickOptions(use_cache=True)``: the
     TickCache's warm gather and the resident plane, published on the card
     through its device mirror) against the CPU's warm tick and the card's
-    cold tick, on three stores. Returns the card stores' launches and
-    the slab-layout kernels-line row. ``card="cpu"`` rehearses it on the
-    CPU (no launches, no kernels-line row)."""
+    cold tick, on three stores; then the loop (``service_loop``). Returns
+    the card stores' launches, the loop's, and the slab-layout
+    kernels-line row. ``card="cpu"`` rehearses it on the CPU (no
+    launches, no kernels-line row, no device profile); ``root`` is where
+    the loop's profiler trace goes (``DATA_ROOT`` by default)."""
     import gc
     import itertools
     import random
@@ -1561,7 +1777,7 @@ def service_phase(torch, np, problem, sm_mhz, card="cuda") -> dict:
     from evergreen_tpu_torch.scheduler.persister import persister_state_for
     from evergreen_tpu_torch.scheduler.snapshot import build_snapshot
     from evergreen_tpu_torch.storage.store import Store
-    from evergreen_tpu_torch.utils import faults
+    from evergreen_tpu_torch.utils import faults, tracing
     from evergreen_tpu_torch.utils.benchgen import NOW
     from evergreen_tpu_torch.utils.gctune import tune_gc_for_long_lived_heap
 
@@ -1592,8 +1808,10 @@ def service_phase(torch, np, problem, sm_mhz, card="cuda") -> dict:
         ("3 (solve fault)", NOW + 2 * TICK_STEP_S, None, fault),
         (f"4 (+{added}, -{removed}, churn)", NOW + 3 * TICK_STEP_S, distro_churn, None),
         ("5 (quiet)", NOW + 4 * TICK_STEP_S, None, None),
+        (QUIET_UNTRACED, NOW + 5 * TICK_STEP_S, None, None),
     ]
     total = {k: {} for k in ("card warm", "card cold")}
+    trees, walls = {}, {}
     slab_row = None
     try:
         for k, (label, now, before, plan) in enumerate(steps):
@@ -1620,11 +1838,13 @@ def service_phase(torch, np, problem, sm_mhz, card="cuda") -> dict:
                 uuid.uuid4 = lambda rng=rng: uuid.UUID(int=rng.getrandbits(128))
                 time.time = lambda now=now: now
                 event_mod._SEQ = seqs[key]
+                traced = tracing.set_tracing_enabled(label != QUIET_UNTRACED)
                 try:
                     results[key] = wrapper.run_tick(
                         store, wrapper.TickOptions(use_cache=warm), now=now,
                         device=card if card_store else "cpu")
                 finally:
+                    tracing.set_tracing_enabled(traced)
                     uuid.uuid4, time.time = real_uuid4, real_time
                     gc.callbacks.remove(gcs[key])
                     faults.uninstall()
@@ -1655,17 +1875,20 @@ def service_phase(torch, np, problem, sm_mhz, card="cuda") -> dict:
                 check(shapes[key] == shapes["card warm"],
                       f"tick {label}: persister shapes of {key} {shapes[key]} differ "
                       f"from {shapes['card warm']}")
-            n_docs = 0
-            for name in TICK_COLLECTIONS:
-                want_docs = stores["card warm"].collection(name).find()
-                for key in keys[1:]:
-                    got = stores[key].collection(name).find()
-                    check(len(got) == len(want_docs), f"tick {label}: {name} count "
-                          f"of {key} differs")
-                    for g, w in zip(got, want_docs):
-                        check(g == w, f"tick {label}: {name} document {w.get('_id')!r} "
-                              f"of {key} differs from the card's warm store")
-                n_docs += len(want_docs)
+            n_docs = same_service_docs(stores, keys, f"tick {label}")
+            if r.trace_id:
+                warm_tree = tree_shape(stores["card warm"], r.trace_id)
+                check(warm_tree == tree_shape(stores["CPU warm"],
+                                              results["CPU warm"].trace_id, lease=False),
+                      f"tick {label}: the card's span tree differs from the CPU's")
+                names = tree_names(tree_shape(stores["card cold"],
+                                              results["card cold"].trace_id))
+                check(names == cold_tree_names(r.degraded),
+                      f"tick {label}: the cold store's span tree {names}")
+                trees[label] = tree_names(warm_tree)
+            else:
+                check(all(not results[key].trace_id for key in keys),
+                      f"tick {label}: a trace with tracing off")
             cold_l, warm_l = launches["card cold"], launches["card warm"]
             check(warm_l["fused_distro_stats"] == (1 if solve_tick and on_card else 0)
                   and warm_l == cold_l and launches["CPU warm"]["segment_sum"] == 0,
@@ -1717,9 +1940,253 @@ def service_phase(torch, np, problem, sm_mhz, card="cuda") -> dict:
                 + " full collections)")
             log(f"tick {label} mirror: {uploaded} B H2D, a full upload of this "
                 f"arena {full} B ({100.0 * uploaded / full:.1f}%)")
+            walls[label] = results["card warm"].total_ms
     finally:
         undo()
-    return dict(launches=total, slab_row=slab_row)
+    log(f"service tick span trees (card warm == CPU warm less arena_lease; card cold "
+        f"its cold tree): " + "; ".join(f"{k} {v}" for k, v in trees.items()))
+    log(f"quiet tick, card warm store, tracing on / off: {walls['5 (quiet)']:.2f} / "
+        f"{walls[QUIET_UNTRACED]:.2f} ms whole tick (one tick each; the JAX package's "
+        f"guard holds on-vs-off to 2%, tools/perf_guard.py)")
+    loop = service_loop(torch, np, stores, keys, seqs, card, root or DATA_ROOT)
+    tracing_cost(stores["card warm"], card)
+    return dict(launches=total, loop=loop, slab_row=slab_row)
+
+
+def tracing_cost(store, card) -> None:
+    """Tracing's cost on the quiet tick: after the loop, quiet ticks of the
+    warm card store in ``TRACING_ORDER``; prints the median whole tick
+    with tracing on and off, and the median of the differences of the
+    adjacent on/off pairs. Reported, not gated (the JAX package's guard
+    holds on-vs-off to 2%, ``tools/perf_guard.py``)."""
+    from evergreen_tpu_torch.scheduler import wrapper
+    from evergreen_tpu_torch.utils import tracing
+    from evergreen_tpu_torch.utils.benchgen import NOW
+
+    walls = {True: [], False: []}
+    pairs = []
+    for i, on in enumerate(TRACING_ORDER):
+        traced = tracing.set_tracing_enabled(on)
+        try:
+            res = wrapper.run_tick(store, wrapper.TickOptions(use_cache=True),
+                                   now=NOW + (10 + i) * TICK_STEP_S, device=card)
+        finally:
+            tracing.set_tracing_enabled(traced)
+        check((res.planner_used, res.degraded) == ("tpu", ""),
+              f"tracing cost tick {i}: planner {res.planner_used!r}, degraded "
+              f"{res.degraded!r}")
+        check(bool(res.trace_id) == on, f"tracing cost tick {i}: trace {res.trace_id!r}")
+        walls[on].append(res.total_ms)
+        if i % 2:
+            pairs.append(walls[True][-1] - walls[False][-1])
+    on_ms, off_ms = statistics.median(walls[True]), statistics.median(walls[False])
+    log(f"tracing cost, card warm store, {len(TRACING_ORDER)} quiet ticks in the order "
+        + "".join("+" if on else "-" for on in TRACING_ORDER)
+        + f": whole tick median on {on_ms:.2f} ms, off {off_ms:.2f} ms "
+        f"({100.0 * (on_ms - off_ms) / off_ms:+.1f}%); on-off pairs "
+        + ", ".join(f"{d:+.2f}" for d in pairs)
+        + f" ms, median {statistics.median(pairs):+.2f} ms; ticks on "
+        + ", ".join(f"{w:.2f}" for w in walls[True]) + "; off "
+        + ", ".join(f"{w:.2f}" for w in walls[False])
+        + " (not gated; the JAX package's guard holds on-vs-off to 2%, "
+        "tools/perf_guard.py)")
+
+
+def infos_by_name(doc) -> dict:
+    """A queue document with its task-group infos sorted by name. After
+    dispatch starts task groups on hosts, a warm store's resident plane
+    orders those host-only (empty) groups otherwise than a cold build,
+    and so does the JAX package's: the warm and cold documents then
+    differ in that order alone (ROADMAP, Queue 3)."""
+    info = doc.get("info")
+    if not isinstance(info, dict) or "task_group_infos" not in info:
+        return doc
+    return dict(doc, info=dict(info, task_group_infos=sorted(
+        info["task_group_infos"], key=lambda g: g["name"])))
+
+
+def same_service_docs(stores, keys, label) -> int:
+    """Every document of ``TICK_COLLECTIONS`` equal across ``stores`` (in
+    ``keys`` order, held to the first; the cold store's queue documents
+    with their task-group infos in name order, ``infos_by_name``), and
+    the span documents of the two warm stores equal (``span_json``; the
+    cold store's spans are held by their trees); returns how many
+    documents were compared."""
+    n_docs = 0
+    for name in TICK_COLLECTIONS:
+        want_docs = stores[keys[0]].collection(name).find()
+        for key in keys[1:]:
+            got = stores[key].collection(name).find()
+            check(len(got) == len(want_docs), f"{label}: {name} count of {key} differs")
+            for g, w in zip(got, want_docs):
+                if key == "card cold" and g != w:
+                    g, w = infos_by_name(g), infos_by_name(w)
+                check(g == w, f"{label}: {name} document {w.get('_id')!r} of {key} "
+                      f"differs from {keys[0]}'s")
+        n_docs += len(want_docs)
+    check(span_json(stores["card warm"]) == span_json(stores["CPU warm"]),
+          f"{label}: the span documents of the warm stores differ")
+    return n_docs + len(stores["card warm"].collection("spans"))
+
+
+def service_loop(torch, np, stores, keys, seqs, card, root) -> dict:
+    """Phase 8's loop on its three stores: two rounds of an agent pass
+    (``agent_pass``: what a fleet worker's ``agent_sim`` does) and a tick.
+    After each pass the (host, task) pairs, then every document, equal
+    across the stores; after each tick the documents, the queues and
+    ``TickResult.new_hosts`` too, and the launches exact. The first loop
+    tick of the warm card store runs its solve under the device profiler
+    (``TracerConfig.xla_profile_dir``, set in every store: the next tick,
+    the CPU store's, writes no second trace): the trace names both
+    kernels, and their device time fits in the tick's ``solve`` span; that
+    tick's span tree equals the CPU store's, and the next pass's
+    ``dispatch_assign`` spans parent into its trace. Returns the card
+    stores' launches in the loop's ticks."""
+    import random
+    import shutil
+    import uuid
+
+    from evergreen_tpu_torch.models import event as event_mod
+    from evergreen_tpu_torch.ops.distro_stats import fused_distro_stats
+    from evergreen_tpu_torch.ops.segment import segment_sum
+    from evergreen_tpu_torch.scheduler import wrapper
+    from evergreen_tpu_torch.settings import CapacityConfig, TracerConfig
+    from evergreen_tpu_torch.utils import tracing
+    from evergreen_tpu_torch.utils.benchgen import NOW
+
+    on_card = torch.device(card).type == "cuda"
+    profile_dir = os.path.join(root, "loop-profile")
+    shutil.rmtree(profile_dir, ignore_errors=True)
+    real_uuid4, real_time = uuid.uuid4, time.time
+    want = (expected_launches([CapacityConfig().iterations]) if on_card
+            else {"fused_distro_stats": 0, "segment_sum": 0})
+    loop = {"card warm": {}, "card cold": {}}
+    profiled_trace = None  # the first loop tick's, on the warm card store
+    dropped0 = tracing.TRACE_RING_DROPPED.value()
+    for j in range(LOOP_ROUNDS):
+        t_pass = NOW + (6 + 2 * j) * TICK_STEP_S
+        t_tick = t_pass + TICK_STEP_S
+        passes = {}
+        for key in keys:
+            event_mod._SEQ = seqs[key]
+            time.time = lambda t_pass=t_pass: t_pass
+            try:
+                passes[key] = agent_pass(stores[key], t_pass)
+            finally:
+                time.time = real_time
+        finished, pairs, _, _ = passes[keys[0]]
+        for key in keys[1:]:
+            check(passes[key][:2] == (finished, pairs),
+                  f"loop pass {j + 1}: {key}'s finished tasks or (host, task) pairs differ")
+        n_docs = same_service_docs(stores, keys, f"loop pass {j + 1}")
+        n_assigned = sum(1 for _, t in pairs if t is not None)
+        check(n_assigned > 0, f"loop pass {j + 1}: nothing dispatched")
+        log(f"loop pass {j + 1}: {len(finished)} tasks finished (mark_end), "
+            f"{len(pairs)} free hosts pulled, {n_assigned} assigned; pairs and "
+            f"{n_docs} documents equal in the three stores; dispatch wall (ms; "
+            + " / ".join(keys) + "): " + " / ".join(f"{passes[k][2]:.2f}" for k in keys)
+            + "; assigns per second " + " / ".join(
+                f"{1e3 * n_assigned / max(passes[k][2], 1e-9):.0f}" for k in keys)
+            + "; mark_task_started + mark_end wall (ms) " + " / ".join(
+                f"{passes[k][3]:.2f}" for k in keys))
+        if j == 1:
+            tree = tracing.trace_tree(stores["card warm"], profiled_trace)
+            assigns = [c for c in tree["roots"][0]["children"]
+                       if c["name"] == "dispatch_assign"]
+            check(assigns and all(c["component"] == "dispatch" for c in assigns),
+                  "loop pass 2: no dispatch_assign span in the profiled tick's trace")
+            log(f"loop pass 2: {len(assigns)} dispatch_assign spans parent into the "
+                f"profiled tick's trace (the ring keeps {tracing.TraceRing().max_spans_per_trace}"
+                f" spans a trace; dropped over the loop "
+                f"{tracing.TRACE_RING_DROPPED.value() - dropped0:.0f})")
+        if j == 0:
+            for store in stores.values():
+                TracerConfig(xla_profile_dir=profile_dir).set(store)
+        results, launches, phases = {}, {}, {}
+        for key, card_store, warm in SERVICE_STORES:
+            phase0 = {p: wrapper.TICK_PHASE_MS.state(phase=p)[1] for p in TICK_PHASES}
+            reset_launches(fused_distro_stats, segment_sum)
+            rng = random.Random(4000 + j)
+            uuid.uuid4 = lambda rng=rng: uuid.UUID(int=rng.getrandbits(128))
+            time.time = lambda t_tick=t_tick: t_tick
+            event_mod._SEQ = seqs[key]
+            try:
+                results[key] = wrapper.run_tick(
+                    stores[key], wrapper.TickOptions(use_cache=warm), now=t_tick,
+                    device=card if card_store else "cpu")
+            finally:
+                uuid.uuid4, time.time = real_uuid4, real_time
+            launches[key] = read_launches(fused_distro_stats, segment_sum)
+            phases[key] = {p: wrapper.TICK_PHASE_MS.state(phase=p)[1] - phase0[p]
+                           for p in TICK_PHASES}
+            if j == 0 and key == "card warm" and on_card:
+                profiled_solve_checks(stores[key], results[key], profile_dir)
+            if j == 0 and key != "card warm" and on_card:
+                check(len(os.listdir(profile_dir)) == 1,
+                      f"loop tick 1: {key}'s tick wrote a second trace")
+        r = results["card warm"]
+        if j == 0:
+            profiled_trace = r.trace_id
+        for key in keys:
+            c = results[key]
+            check((c.planner_used, c.degraded) == ("tpu", ""),
+                  f"loop tick {j + 1} {key}: planner {c.planner_used!r}, degraded "
+                  f"{c.degraded!r}")
+            for field in ("queues", "new_hosts", "n_tasks", "n_distros", "shed",
+                          "overload"):
+                check(getattr(c, field) == getattr(r, field),
+                      f"loop tick {j + 1}: TickResult.{field} of {key} differs")
+            if key != "CPU warm":
+                check(launches[key] == want, f"loop tick {j + 1} {key}: launches "
+                      f"{launches[key]}, expected {want}")
+                for k_, v in launches[key].items():
+                    loop[key][k_] = loop[key].get(k_, 0) + v
+        n_docs = same_service_docs(stores, keys, f"loop tick {j + 1}")
+        check(tree_shape(stores["card warm"], r.trace_id) == tree_shape(
+            stores["CPU warm"], results["CPU warm"].trace_id, lease=False),
+            f"loop tick {j + 1}: the card's span tree differs from the CPU's")
+        log(f"loop tick {j + 1}: planner {r.planner_used}, degraded {r.degraded!r}; "
+            f"{sum(r.queues.values())} queue items, {sum(r.new_hosts.values())} new "
+            f"hosts; {n_docs} documents equal in the three stores; launches {want} "
+            f"in each card store (exact)")
+        log(f"loop tick {j + 1} wall (ms; " + " / ".join(keys) + "): " + "; ".join(
+            f"{p} " + " / ".join(f"{phases[key][p]:.2f}" for key in keys)
+            for p in TICK_PHASES)
+            + "; whole tick " + " / ".join(f"{results[key].total_ms:.2f}" for key in keys))
+    shutil.rmtree(profile_dir, ignore_errors=True)
+    return loop
+
+
+def profiled_solve_checks(store, res, profile_dir) -> None:
+    """The loop's profiled tick: its Chrome trace exists and names both
+    kernels, and their device time (every kernel event of the capture,
+    which covers the solve only) is at most the tick's ``solve`` span."""
+    from evergreen_tpu_torch.utils import tracing
+
+    files = os.listdir(profile_dir)
+    check(files == [os.path.basename(tracing.profile_trace_path(profile_dir))],
+          f"loop tick 1: profile directory holds {files}")
+    with open(os.path.join(profile_dir, files[0])) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = {e["name"] for e in kernels}
+    for k in HAND_KERNELS:
+        check(any(k in n for n in names), f"loop tick 1: the trace names no {k}")
+    device_ms = sum(e.get("dur", 0.0) for e in kernels) / 1e3
+    tree = tracing.trace_tree(store, res.trace_id)
+    solve = next(c for c in tree["roots"][0]["children"] if c["name"] == "solve")
+    check(device_ms <= solve["duration_ms"],
+          f"loop tick 1: kernels' device time {device_ms:.3f} ms exceeds the solve "
+          f"span's {solve['duration_ms']:.3f} ms")
+    by_name = {}
+    for e in kernels:
+        short = next((k for k in HAND_KERNELS if k in e["name"]), "other")
+        by_name[short] = by_name.get(short, 0) + 1
+    log(f"loop tick 1 (card warm) under the device profiler: trace "
+        f"{os.path.getsize(os.path.join(profile_dir, files[0]))} B, "
+        f"{len(kernels)} kernels ({json.dumps(by_name, sort_keys=True)}), their device "
+        f"time {device_ms:.3f} ms inside the solve span's {solve['duration_ms']:.3f} ms "
+        f"(the tick {res.total_ms:.2f} ms)")
 
 
 #: phase 9: the sharded plane's shard count, its three planes (name, the
@@ -1742,6 +2209,8 @@ def canon_doc(doc):
     """``doc``, or a copy with the ids that depend on how the shard
     threads interleave canonicalised: an event's id, an intent host's id
     (its distro kept) and secret, and those inside handoff payloads."""
+    if is_span(doc):
+        return canon_span(doc)
     if doc["_id"].startswith("evt-"):
         return dict(doc, _id="evt")
     if doc["_id"].startswith("evg-") and doc.get("status") == "initializing":
@@ -1871,6 +2340,37 @@ def profiled_tick(torch, plane, now) -> tuple:
         kernel_launches=n_launch)
 
 
+def fleet_pull(planes, now) -> None:
+    """After phase 9's last round: an agent pull for every free host, in
+    id order across the shards, through
+    ``assign_next_available_task_fleet`` on plane (a) (card) and plane
+    (c) (CPU); the pairs, and every shard store's documents, equal."""
+    from evergreen_tpu_torch.dispatch.assign import assign_next_available_task_fleet
+
+    pulls, ms = {}, {}
+    for name in ("a", "c"):
+        plane = planes[name]
+        hids = sorted(d["_id"] for s in plane.stores for d in s.collection("hosts").find()
+                      if d["status"] == "running" and d["started_by"] == "mci"
+                      and not d["running_task"])
+        t0 = time.perf_counter()
+        pulls[name] = []
+        for hid in hids:
+            t = assign_next_available_task_fleet(plane, hid, now=now)
+            pulls[name].append((hid, t.id if t is not None else None))
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    check(pulls["a"] == pulls["c"], "fleet pull: the (host, task) pairs of (a) and (c) "
+          "differ")
+    n_assigned = sum(1 for _, t in pulls["a"] if t is not None)
+    check(n_assigned > 0, "fleet pull: nothing dispatched")
+    n_docs = same_plane_docs({k: planes[k] for k in ("a", "c")}, "fleet pull")
+    log(f"fleet pull: {len(pulls['a'])} free hosts pulled through "
+        f"assign_next_available_task_fleet, {n_assigned} assigned; pairs and {n_docs} "
+        f"documents equal in (a) and (c); wall ms (a) {ms['a']:.2f}, (c) {ms['c']:.2f}; "
+        f"assigns per second (a) {1e3 * n_assigned / ms['a']:.0f}, (c) "
+        f"{1e3 * n_assigned / ms['c']:.0f}")
+
+
 def sharded_phase(torch, np, problem, card="cuda") -> dict:
     """Phase 9: the sharded plane at config 3 over four shard stores on
     one card, in three planes ticked round by round. Returns the card
@@ -1944,6 +2444,15 @@ def sharded_phase(torch, np, problem, card="cuda") -> dict:
             drift = [d for _, d in stacked_calls[n_calls:] if d is not None]
             solve_ms = [ms for ms, d in stacked_calls[n_calls:] if d is None]
             n_docs = same_plane_docs(planes, f"round {label}")
+            # spans: the two local planes' equal (span_json); plane (a)'s
+            # stacked rounds pack fresh, so its spans are held by count
+            for k in range(PLANE_SHARDS):
+                check(span_json(planes["b"].stores[k]) == span_json(planes["c"].stores[k]),
+                      f"round {label}: shard {k}'s span documents differ in (b) and (c)")
+                ticks = planes["a"].stores[k].collection("spans").count(
+                    lambda d: d["name"] == "tick")
+                check(ticks == r + 1, f"round {label}: plane (a) shard {k} holds {ticks} "
+                      f"tick spans")
             for name, plane in planes.items():
                 check(fleet_owner_violations(plane.stores) == [],
                       f"round {label}: plane {name} violates exactly-one-owner")
@@ -1999,6 +2508,7 @@ def sharded_phase(torch, np, problem, card="cuda") -> dict:
                     f"synchronisation {t['sync_ms']:.2f} ms summed over the shard "
                     f"threads ({t['sync_max_thread_ms']:.2f} ms in the most waiting "
                     f"one), {t['kernel_launches']} kernel launches")
+        fleet_pull(planes, NOW + len(PLANE_ROUNDS) * TICK_STEP_S)
     finally:
         time.time = real_time
         for plane in planes.values():
@@ -2067,12 +2577,19 @@ DURABLE_STORES = (("a", True, True), ("b", False, True), ("c", True, False))
 #: the checkout, gitignored, removed at the end of the phase)
 LEASE_TTL_S = 2.0
 DATA_ROOT = os.path.join(HERE, "_smoke_data")
-#: the fleet's rounds (shard 0 held YELLOW in the third)
-FLEET_ROUNDS = ("1 (prime)", "2 (after churn)", "3 (shard 0 YELLOW)", "4 (quiet)")
-FLEET_YELLOW = 2
-#: the durable card fleet's modes, held as phase 9 holds plane (a)'s; the
-#: fifth round is the reopened fleet's first, local (its dims floor cold)
-FLEET_MODES = ("local", "stacked or grown", "stacked", "stacked", "local")
+#: the fleet's rounds, shard 0 held YELLOW in the second (the round
+#: between the churn and the YELLOW one was cut when phase 8's loop
+#: needed the time: phase 9 runs the in-process plane's rounds, and phase
+#: 11 durable shards' stacked rounds and handoff)
+FLEET_ROUNDS = ("1 (prime)", "2 (after churn, shard 0 YELLOW)", "3 (quiet)")
+FLEET_YELLOW = 1
+#: the durable card fleet's modes, held as phase 9 holds plane (a)'s:
+#: round 1 measures the floor (local); round 2 stacks or meets a shard
+#: the churn grew past it (local, the floor raised); round 3, the first
+#: after the handoff, stacks: the stacked solve over durable shards, its
+#: WAL groups beside the stacked barrier. The last round is the reopened
+#: fleet's first, local (its dims floor cold)
+FLEET_MODES = ("local", "stacked or grown", "stacked", "local")
 
 
 def service_opts(wrapper):
@@ -2092,12 +2609,21 @@ def wal_lines(path, start=0) -> list:
         return [line for line in fh.read().split(b"\n") if line]
 
 
+def lease_span_record(rec: dict) -> bool:
+    """Whether ``rec`` journals an ``arena_lease`` span (a CPU publish's;
+    the card's publish through the mirror leases no arena)."""
+    return rec.get("c") == "spans" and rec.get("d", {}).get("name") == "arena_lease"
+
+
 def canon_record(rec: dict) -> dict:
     """A WAL record without its commit time and stamp (the flusher writes
-    a frame whenever its thread runs), documents as ``canon_doc``."""
+    a frame whenever its thread runs), documents as ``canon_doc`` (span
+    documents masked), a frame without its ``arena_lease`` span records
+    (``n`` counting the rest)."""
     rec = {k: v for k, v in rec.items() if k not in ("ts", "k")}
     if "rs" in rec:
-        rec["rs"] = [canon_record(r) for r in rec["rs"]]
+        rec["rs"] = [canon_record(r) for r in rec["rs"] if not lease_span_record(r)]
+        rec["n"] = len(rec["rs"])
     if "d" in rec:
         rec["d"] = canon_doc(rec["d"])
     if "ds" in rec:
@@ -2128,6 +2654,12 @@ def store_json(store, names=None, stamps=True) -> str:
 
     return json.dumps({n: docs(n) for n in names},
                       sort_keys=True, separators=(",", ":"), default=str)
+
+
+def doc_names(store) -> list:
+    """The collections of ``store`` that hold a document, but ``spans``."""
+    return [n for n in sorted(store._collections)
+            if n != "spans" and len(store.collection(n))]
 
 
 def timed_method(store, name) -> list:
@@ -2268,18 +2800,25 @@ def durable_phase(torch, np, problem, card="cuda", root=DATA_ROOT) -> dict:
         the count of documents and of queue documents whose stamps differ
         between the first fresh store and the first live one."""
         full = {k: store_json(s, TICK_COLLECTIONS) for k, s in keyed.items()}
+        spans = {k: span_json(s) for k, s in keyed.items()}
         for group in ([k for k in keyed if k not in fresh], [k for k in keyed if k in fresh]):
             for k in group[1:]:
                 check(full[k] == full[group[0]],
                       f"{label}: the documents of {k} differ from {group[0]}'s")
+                check(spans[k] == spans[group[0]],
+                      f"{label}: the span documents of {k} differ from {group[0]}'s")
         n_docs = sum(len(next(iter(keyed.values())).collection(n)) for n in TICK_COLLECTIONS)
         if not fresh:
             return n_docs, 0
-        bare = {k: store_json(s, TICK_COLLECTIONS, stamps=False) for k, s in keyed.items()}
         live = next(k for k in keyed if k not in fresh)
+        bare = {k: store_json(keyed[k], TICK_COLLECTIONS, stamps=False)
+                for k in (live,) + tuple(fresh)}
         for k in fresh:
             check(bare[k] == bare[live], f"{label}: the documents of {k} differ from "
                   f"{live}'s beyond the queue documents' {QUEUE_STAMPS}")
+            check(span_json(keyed[k], live=False) == span_json(keyed[live], live=False),
+                  f"{label}: the span documents of {k} differ from {live}'s beyond "
+                  f"{FRESH_ATTRS}")
         restamped = sum(
             1 for n in ("task_queues", "task_secondary_queues")
             for d, e in zip(keyed[fresh[0]].collection(n).find(),
@@ -2467,14 +3006,23 @@ def durable_phase(torch, np, problem, card="cuda", root=DATA_ROOT) -> dict:
                   f"{key} did not take the lease (epoch {lease.epoch})")
         label, now = "5 (fenced)", NOW + 4 * TICK_STEP_S
         wal0 = os.path.getsize(wal_path(stores["a"]))
-        docs0 = store_json(stores["a"])
+        docs0 = store_json(stores["a"], names=doc_names(stores["a"]))
+        spans0 = {d["_id"] for d in stores["a"].collection("spans").find()}
         res, got, ph, gc_ms = tick("a", stores["a"], 4, now, card)
         plane = resident.peek_resident_plane(stores["a"])
         check(res.degraded == "fenced" and res.queues == {} and res.planner_used == "",
               f"tick {label} (a): degraded {res.degraded!r}")
         check(got == no_launches, f"tick {label} (a): launches {got}")
         check(os.path.getsize(wal_path(stores["a"])) == wal0, f"tick {label}: (a)'s WAL grew")
-        check(store_json(stores["a"]) == docs0, f"tick {label}: (a)'s documents changed")
+        check(store_json(stores["a"], names=doc_names(stores["a"])) == docs0,
+              f"tick {label}: (a)'s documents changed")
+        # the fenced tick's root span reaches memory (the store applies a
+        # write before its journal refuses it, as the JAX package's does)
+        # and never the WAL (the size check above)
+        new_spans = [(d["name"], d["attributes"]["degraded"])
+                     for d in stores["a"].collection("spans").find() if d["_id"] not in spans0]
+        check(new_spans == [("tick", "fenced")],
+              f"tick {label}: (a)'s new span documents {new_spans}")
         check(not plane._ready and plane._pending_reason == "fenced"
               and (plane._mirror is None or plane._mirror._bufs is None),
               f"tick {label}: (a)'s plane was not dropped ({plane._pending_reason!r})")
@@ -2524,8 +3072,8 @@ def durable_phase(torch, np, problem, card="cuda", root=DATA_ROOT) -> dict:
 def fleet_phase(torch, np, problem, keep, card, data_dir, launches_by) -> None:
     """Phase 10's durable fleet: ``ShardedScheduler.build(4, data_dir=...,
     stacked="always")`` on the card against an in-memory CPU plane
-    (``stacked="never"``), the cron front end's round options; four rounds,
-    a crash copy, ``open_fleet`` and a fifth round, held to the live CPU
+    (``stacked="never"``), the cron front end's round options; three rounds,
+    a crash copy, ``open_fleet`` and a fourth round, held to the live CPU
     plane without the queue documents' write stamps (its persisters are
     fresh). A second copy reopened on the CPU, the reopened fleet's
     comparator with every field, was cut when phase 11 needed the time."""
@@ -2559,9 +3107,12 @@ def fleet_phase(torch, np, problem, keep, card, data_dir, launches_by) -> None:
     for plane in planes.values():
         src = Store()
         seed_tick_store(src, problem, only=keep)
+        for s in plane.stores:  # each durable shard's seed is one group frame
+            s.begin_tick()
         plane.seed_partition(src)
         for s in plane.stores:
             CapacityConfig(pool_quotas=PLAN_QUOTA, fleet_intent_budget=PLAN_BUDGET).set(s)
+            s.end_tick()
     log(f"durable fleet: {PLANE_SHARDS} DurableStores in one directory (build "
         f"{build_ms:.2f} ms, leases {LEASE_TTL_S} s), stacked='always' on the card, "
         f"against an in-memory CPU plane, stacked='never'; rounds with the cron "
@@ -2628,6 +3179,14 @@ def fleet_phase(torch, np, problem, keep, card, data_dir, launches_by) -> None:
         for name in names[1:]:
             check(res[name].migrations == res[names[0]].migrations,
                   f"fleet round {label}: migrations differ")
+        # spans: the card fleet's stacked rounds pack fresh where the CPU
+        # plane's local rounds pack through the resident plane, so the
+        # planes' spans are held by their tick counts, shard by shard
+        ticks = {n: [s.collection("spans").count(lambda d: d["name"] == "tick")
+                     for s in keyed[n].stores] for n in names}
+        for name in names[1:]:
+            check(ticks[name] == ticks[names[0]], f"fleet round {label}: tick spans "
+                  f"{ticks}")
         log(f"durable fleet round {label}: modes " + ", ".join(
             f"{n} {res[n].solve_mode}" for n in names) + f" (card drift {drift}); wall ms "
             + ", ".join(f"{n} {res[n].total_ms:.2f}" for n in names) + f"; migrations "
@@ -2662,7 +3221,8 @@ def fleet_phase(torch, np, problem, keep, card, data_dir, launches_by) -> None:
                                           device=card, stacked="always", **kw)
         open_ms = (time.perf_counter() - t0) * 1e3
         stacked_calls["reopened"] = timed_stacked_solve(reopened["reopened"])
-        log(f"durable fleet: the directory copied after round 4 without closing; "
+        log(f"durable fleet: the directory copied after round {len(FLEET_ROUNDS)} "
+            f"without closing; "
             f"open_fleet(copy) in {open_ms:.2f} ms on the card (stale leases stolen, "
             f"epochs {[s.epoch for s in reopened['reopened'].stores]}, handoffs "
             f"reconciled)")
@@ -2670,7 +3230,7 @@ def fleet_phase(torch, np, problem, keep, card, data_dir, launches_by) -> None:
         keyed = {**reopened, "cpu": planes["cpu"]}
         for plane in keyed.values():
             overload.monitor_for(plane.stores[0]).set_floor(overload.GREEN)
-        run_round("5 (reopened)", len(FLEET_ROUNDS), now, keyed, fresh=tuple(reopened))
+        run_round(f"{len(FLEET_ROUNDS) + 1} (reopened)", len(FLEET_ROUNDS), now, keyed, fresh=tuple(reopened))
     finally:
         time.time = real_time
         for plane in (planes["card"], *reopened.values(), planes["cpu"]):
@@ -2687,9 +3247,11 @@ PROC_SHARDS = 4
 #: the fleet's rounds: prime, two quiet rounds, the round after a handoff
 #: and, after shard 2 is drained, killed and restarted, two more
 PROC_ROUNDS = ("1 (prime)", "2 (quiet)", "3 (quiet)", "4 (after the handoff)",
-               "5 (after the restart)", "6 (quiet)")
+               "5 (after the restart)", "6 (after the agent pass)")
 #: the handoff lands before this round (0-based); shard 2 is killed after it
 PROC_MIGRATE, PROC_KILL_AFTER, PROC_KILLED = 3, 3, 2
+#: every worker's harness agent (``agent_sim``) runs after this round
+PROC_AGENT_AFTER = 4
 #: the leader's modes: round 1 measures the floor (local); round 2 stacks
 #: or meets a shard whose intents grew it past the floor; the round after
 #: the handoff stacks or meets the target grown past the floor; the rest
@@ -2707,6 +3269,10 @@ PROC_STALE, PROC_GONE, PROC_BUILDING = 3, 2, 3
 
 def proc_round_now(r) -> float:
     return PROC_ANCHOR + (r + 1) * TICK_STEP_S
+
+
+def proc_agent_now() -> float:
+    return proc_round_now(PROC_AGENT_AFTER) + 1.0
 
 
 def seed_proc_fleet(problem, data_dir) -> dict:
@@ -2807,8 +3373,12 @@ def proc_twin(here, data_dir, migration, out_path) -> None:
     service options at each round's ``now``, the handoff through
     ``apply_release`` / ``apply_prime`` and the done-mark, and shard
     ``PROC_KILLED`` reopened after ``PROC_KILL_AFTER`` and recovered
-    again, as its restarted worker is. Writes the recovery reports and
-    each shard's canonical documents to ``out_path``."""
+    again, as its restarted worker is, and the agent pass (``agent_pass``, what each worker's
+    ``agent_sim`` does) after ``PROC_AGENT_AFTER``. A worker's tick under
+    the leader's stamp packs fresh, so the twin's ticks do too
+    (``use_resident=False``: the same documents, and the same spans).
+    Writes the recovery reports, the agents' counts and each shard's
+    canonical documents to ``out_path``."""
     sys.path.insert(0, here)
     from evergreen_tpu_torch.parallel.topology import ShardTopology
     from evergreen_tpu_torch.scheduler import sharded_plane as sp
@@ -2818,7 +3388,7 @@ def proc_twin(here, data_dir, migration, out_path) -> None:
 
     opts = wrapper.TickOptions(create_intent_hosts=True, use_cache=True,
                                solve_deadline_s=10.0, tick_budget_s=12.0,
-                               async_persist=True)
+                               async_persist=True, use_resident=False)
     t0 = time.perf_counter()
     stores = [DurableStore(data_dir, shard_id=k) for k in range(PROC_SHARDS)]
     reports = {"boot": [run_recovery_pass(s, now=PROC_ANCHOR).to_doc() for s in stores]}
@@ -2842,6 +3412,15 @@ def proc_twin(here, data_dir, migration, out_path) -> None:
                 raise RuntimeError(f"twin round {r + 1}: degraded {res.degraded!r}")
         for s in stores:
             s.sync_persist()
+        if r == PROC_AGENT_AFTER:
+            agents = {}
+            for k, s in enumerate(stores):
+                _, pairs, _, _ = agent_pass(s, proc_agent_now())
+                agents[k] = dict(
+                    dispatched=sum(1 for _, t in pairs if t is not None),
+                    unfinished=s.collection("tasks").count(
+                        lambda d: d["status"] not in ("success", "failed")))
+                s.sync_persist()
         if r == PROC_KILL_AFTER:
             stores[PROC_KILLED]._journal.close()  # a SIGKILL closes nothing else
             stores[PROC_KILLED] = s2 = DurableStore(data_dir, shard_id=PROC_KILLED)
@@ -2851,7 +3430,7 @@ def proc_twin(here, data_dir, migration, out_path) -> None:
     for s in stores:
         s.close()
     with open(out_path, "w") as fh:
-        json.dump({"reports": reports, "docs": docs,
+        json.dump({"reports": reports, "docs": docs, "agents": agents,
                    "ms": (time.perf_counter() - t0) * 1e3}, fh)
 
 
@@ -2893,6 +3472,7 @@ def process_fleet_phase(torch, np, problem, card="cuda", root=DATA_ROOT) -> dict
     from evergreen_tpu_torch.scheduler.sharded_plane import fleet_owner_violations
     from evergreen_tpu_torch.settings import CapacityConfig
     from evergreen_tpu_torch.storage.durable import DurableStore
+    from evergreen_tpu_torch.storage.store import Store
     from evergreen_tpu_torch.utils.retry import RetryPolicy
 
     on_card = torch.device(card).type == "cuda"
@@ -2923,8 +3503,8 @@ def process_fleet_phase(torch, np, problem, card="cuda", root=DATA_ROOT) -> dict
         recovery_anchor=PROC_ANCHOR, orphan_grace_s=10.0, supervisor_lease_ttl_s=LEASE_TTL_S,
         restart_policy=RetryPolicy(attempts=1_000_000, base_backoff_s=0.25,
                                    max_backoff_s=2.0, jitter=0.0),
-        solver="always", device=card)
-    serves, worker_launches, leader = [], {}, {}
+        solver="always", device=card, front_store=Store())
+    serves, worker_launches, leader, agents = [], {}, {}, {}
     try:
         reset_launches(fused_distro_stats, segment_sum)
         t0 = time.perf_counter()
@@ -3031,9 +3611,28 @@ def process_fleet_phase(torch, np, problem, card="cuda", root=DATA_ROOT) -> dict
                     f"to the next hello: backoff {h.backoffs[-1]:.2f} s, lease TTL "
                     f"{LEASE_TTL_S} s, spawn, probe, replay, recovery); its recovery "
                     f"pass {hello['recovery_ms']:.2f} ms, recovered {hello['recovered']}")
+            if r == PROC_AGENT_AFTER:
+                t1 = time.perf_counter()
+                agents = sup.agent_sim(now=proc_agent_now())
+                check(sorted(agents) == list(range(PROC_SHARDS)),
+                      f"process fleet: agent_done from {sorted(agents)}")
+                log(f"process fleet: agent_sim (every worker finishes its tasks in "
+                    f"flight, then dispatches every free host) in "
+                    f"{(time.perf_counter() - t1) * 1e3:.2f} ms: " + json.dumps(
+                        {k: [a["dispatched"], a["unfinished"]]
+                         for k, a in sorted(agents.items())})
+                    + " (shard: dispatched, unfinished)")
         for k, st in sup.statuses().items():
             worker_launches[(k, 2 if k == PROC_KILLED else 1)] = status_launches(st)
         leader = read_launches(fused_distro_stats, segment_sum)
+        rounds = [d for d in sup.front_store.collection("spans").find()
+                  if d["name"] == "fleet.round"]
+        check(len(rounds) == len(PROC_ROUNDS) and all(
+            d["attributes"] == {"n_shards": PROC_SHARDS} and d["parent"] is None
+            for d in rounds), f"process fleet: the front store holds {len(rounds)} "
+            f"fleet.round spans")
+        log(f"process fleet: the front store holds one fleet.round span a round "
+            f"({len(rounds)}), ms " + ", ".join(f"{d['duration_ms']:.2f}" for d in rounds))
         t1 = time.perf_counter()
         sup.stop(graceful=True)
         stop_ms = (time.perf_counter() - t1) * 1e3
@@ -3080,6 +3679,12 @@ def process_fleet_phase(torch, np, problem, card="cuda", root=DATA_ROOT) -> dict
                       "stale_frames_dropped": report["stale_frames_dropped"]}
             check(hello["recovered"] == counts, f"process fleet: shard {k} recovered "
                   f"{hello['recovered']}, the twin {counts}")
+    got_agents = {k: {f: agents[k][f] for f in ("dispatched", "unfinished")}
+                  for k in range(PROC_SHARDS)}
+    check(got_agents == {int(k): v for k, v in twin_out["agents"].items()},
+          f"process fleet: agent_sim counts {got_agents}, the twin's {twin_out['agents']}")
+    check(sum(a["dispatched"] for a in got_agents.values()) > 0,
+          "process fleet: agent_sim dispatched nothing")
     boot = twin_out["reports"]["boot"]
     check(all(b["released_claims"] and b["stranded_reset"] and b["hosts_terminated"]
               for b in boot), "process fleet: a shard's recovery did not act on each step")
@@ -3134,6 +3739,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 3
     check(torch.cuda.device_count() == 1, "expected exactly one visible card")
+    # phase 4's worker processes start now: their imports overlap the
+    # backend probe and the build
+    workers = None if sweep_mode else start_stacked_workers()
 
     # the backend probe: a fresh interpreter must see the card
     from evergreen_tpu_torch.utils.torchenv import ensure_usable_backend
@@ -3208,6 +3816,11 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     sm_mhz = float(clock.split()[0])
+    if workers is not None:
+        waited = wait_stacked_workers(workers)
+        log(f"phase 4's worker processes ready {time.perf_counter() - workers['t0']:.2f} s "
+            f"after their start (waited {waited:.2f} s for them here, before the "
+            f"first profile)")
     # the launch floor: the device time of the smallest kernel there is
     one = torch.zeros(1, device=dev)
     floor_ms = device_ms(torch, lambda: one.add_(1.0))
@@ -3438,7 +4051,7 @@ def main() -> int:
     phase_done("phases 1-3")
 
     # ---- 4. stacked rounds; 5. the device mirror ------------------------- #
-    stacked_phase(torch, np, problems["seed0"], F32_TOL, profile_dir)
+    stacked_phase(torch, np, problems["seed0"], F32_TOL, profile_dir, workers)
     phase_done("phase 4")
     mirror_phase(torch, np, problems["seed0"])
     phase_done("phase 5")
@@ -3448,14 +4061,10 @@ def main() -> int:
     phase_done("phase 6")
 
     # ---- 7. the whole tick ------------------------------------------------- #
+    # (its two solve ticks again on fresh stores with the CPU's store
+    # ticked first, a check of the phase times' order, were cut when the
+    # loop of phase 8 needed the time: tick_phase(..., card_first=False))
     tick_launches = tick_phase(torch, np, problems["seed0"])
-    # the two solve ticks again on fresh stores with the CPU's store
-    # ticked first at each step, so neither store's phase times owe to
-    # the order (the serial ticks 3-4 print no phase times, and launch
-    # nothing)
-    again = tick_phase(torch, np, problems["seed0"], card_first=False, depth=2)
-    check(again == tick_launches, f"tick: launches {again} with the CPU first, "
-          f"{tick_launches} with the card first")
     phase_done("phase 7")
 
     # ---- 8. the service's tick -------------------------------------------- #
@@ -3502,6 +4111,9 @@ def main() -> int:
         r["launches_by_path"]["durable control"] = (
             0 if slab_only else durable["c"].get(r["name"], 0))
         r["launches_by_path"]["fleet"] = proc.get(r["name"], 0)
+        r["launches_by_path"]["loop"] = sum(
+            c.get(r["name"], 0) for p, c in service["loop"].items()
+            if not (slab_only and p == "card warm"))
         r["launches"] = sum(r["launches_by_path"].values())
     slab = service["slab_row"]
     slab["floor_ms"] = floor_ms
@@ -3510,7 +4122,8 @@ def main() -> int:
         "sharded": sharded["b"]["fused_distro_stats"],
         "durable": sum(durable[k].get("fused_distro_stats", 0) for k in slab_stores),
         "durable control": durable["c"].get("fused_distro_stats", 0),
-        "fleet": 0}
+        "fleet": 0,
+        "loop": service["loop"]["card warm"].get("fused_distro_stats", 0)}
     slab["launches"] = sum(slab["launches_by_path"].values())
     rows.append(slab)
     # the byte and chain bounds behind bound_ms are in the log lines above

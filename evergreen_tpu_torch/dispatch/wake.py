@@ -4,10 +4,10 @@ A copy of ``evergreen_tpu/dispatch/wake.py``. ``mark_end`` knows exactly
 which dependents became ready, so it updates their persisted queue
 items' dependencies-met flags in place (ordering is untouched — exactly
 what the next tick would compute) and stamps the queue document dirty
-(``dirty_at``). The JAX package then also wakes the long-pollers parked
-on that distro's queue (``dispatch/longpoll.py::hub_for``); the port has
-no dispatcher and so no parked pollers, and that notify (in memory only,
-no document) is left out with dispatch.
+(``dirty_at``), so dispatchers rebuild on the next poll instead of
+waiting out their TTL, and wakes the long-pollers parked on that
+distro's queue (``dispatch/longpoll.py::hub_for``), sized to the entries
+that flipped.
 """
 from __future__ import annotations
 
@@ -30,8 +30,12 @@ def wake_dependents(store: Store, ready_ids: List[str], now: float) -> int:
         for sd in doc.get("secondary_distros", []):
             by_distro.setdefault(sd, []).append(tid)
 
+    from .longpoll import hub_for
+
+    hub = hub_for(store)
     n = 0
     for distro_id, tids in by_distro.items():
+        n_start = n
         for secondary in (False, True):
             coll = tq_mod.coll(store, secondary)
             qdoc = coll.get(distro_id)
@@ -65,4 +69,11 @@ def wake_dependents(store: Store, ready_ids: List[str], now: float) -> int:
             if updated:
                 # bump the dirty stamp so dispatchers rebuild on next poll
                 coll.update(distro_id, {"dirty_at": now})
+        flipped = n - n_start
+        if flipped:
+            # the stamp write above already bumped the hub's generation
+            # (collection listener); this wakes the PARKED long-pollers,
+            # sized to the entries that actually flipped (an inflated
+            # hint stampedes parked agents and overstates the ledger)
+            hub.notify(distro_id, n_hint=flipped)
     return n

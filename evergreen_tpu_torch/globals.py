@@ -29,6 +29,9 @@ class TaskStatus(str, enum.Enum):
 TASK_COMPLETED_STATUSES = frozenset(
     {TaskStatus.SUCCEEDED.value, TaskStatus.FAILED.value}
 )
+TASK_IN_PROGRESS_STATUSES = frozenset(
+    {TaskStatus.DISPATCHED.value, TaskStatus.STARTED.value}
+)
 
 
 class HostStatus(str, enum.Enum):

@@ -2,9 +2,10 @@
 
 A copy of ``evergreen_tpu/models/host.py``'s ``Host`` (field for field)
 and the store functions the tick's gather and intent budget call, with
-``clear_running_task`` (task end: ``models/lifecycle.py::mark_end``) and
-the recovery pass's claim release; ``assign_running_task`` and the other
-dispatch writes are not ported.
+``clear_running_task`` (task end: ``models/lifecycle.py::mark_end``),
+the recovery pass's claim release, and the dispatcher's compare-and-set
+``assign_running_task`` with the ``can_run_tasks`` predicate
+(``dispatch/assign.py``).
 """
 from __future__ import annotations
 
@@ -115,6 +116,9 @@ class Host:
     def is_free(self) -> bool:
         return self.running_task == "" and not self.is_tearing_down()
 
+    def can_run_tasks(self) -> bool:
+        return self.status == HostStatus.RUNNING.value and self.started_by == "mci"
+
     def task_group_string(self) -> str:
         return (
             f"{self.running_task_group}_{self.running_task_build_variant}_"
@@ -201,6 +205,26 @@ def all_active_hosts(store: Store, distro_id: str = "") -> List[Host]:
         return True
 
     return find(store, pred)
+
+
+def assign_running_task(
+    store: Store, host_id: str, task, dispatch_time: float
+) -> bool:
+    """Atomic compare-and-set of the host's running task — the dispatch
+    correctness primitive (reference rest/route/host_agent.go:311-420)."""
+    return coll(store).compare_and_set(
+        host_id,
+        expect={"running_task": "", "status": HostStatus.RUNNING.value},
+        update={
+            "running_task": task.id,
+            "running_task_group": task.task_group,
+            "running_task_build_variant": task.build_variant,
+            "running_task_version": task.version,
+            "running_task_project": task.project,
+            "running_task_group_order": task.task_group_order,
+            "last_communication_time": dispatch_time,
+        },
+    )
 
 
 #: the one definition of "no running task" — shared by task-end clearing

@@ -7,14 +7,17 @@ dependents (finished flags, transitive unattainable marking, the
 dependency wake of ``dispatch/wake.py``), frees the host, logs the event,
 blocks or resets a single-host task group, evaluates stepback, rolls the
 build and version statuses up and attributes the task's cloud cost
-(reference model/task_lifecycle.go:713-1150). The dispatch and agent
-transitions (``mark_task_dispatched``, ``mark_task_started``,
-``finish_agent_task``, ``note_host_task_outcome``,
-``activate_task_with_dependencies``) come with dispatch.
+(reference model/task_lifecycle.go:713-1150). With it, the dispatcher's
+and the harness agent's transitions ``mark_task_dispatched`` and
+``mark_task_started``. The agent surface's ``finish_agent_task``,
+``note_host_task_outcome`` and ``activate_task_with_dependencies`` come
+with their callers (the REST agent routes and ``agent/comm.py``).
 """
 from __future__ import annotations
 
+import threading
 import time as _time
+import weakref
 from typing import Dict, List, Optional
 
 from ..globals import (
@@ -34,10 +37,124 @@ from . import version as version_mod
 from .task import DEP_STATUS_ANY, Task
 
 
+def mark_task_dispatched(
+    store: Store, task_id: str, host_id: str, now: Optional[float] = None
+) -> bool:
+    """Atomic undispatched→dispatched transition (reference
+    task.MarkAsHostDispatched via rest/route/host_agent.go:311-420)."""
+    now = _time.time() if now is None else now
+    return task_mod.coll(store).compare_and_set(
+        task_id,
+        expect={"status": TaskStatus.UNDISPATCHED.value},
+        update={
+            "status": TaskStatus.DISPATCHED.value,
+            "dispatch_time": now,
+            "host_id": host_id,
+            "last_heartbeat": now,
+        },
+    )
+
+
+def mark_task_started(
+    store: Store, task_id: str, now: Optional[float] = None
+) -> bool:
+    now = _time.time() if now is None else now
+    ok = task_mod.coll(store).compare_and_set(
+        task_id,
+        expect={"status": TaskStatus.DISPATCHED.value},
+        update={
+            "status": TaskStatus.STARTED.value,
+            "start_time": now,
+            "last_heartbeat": now,
+        },
+    )
+    if ok:
+        event_mod.log(
+            store, event_mod.RESOURCE_TASK, "TASK_STARTED", task_id, timestamp=now
+        )
+    return ok
+
+
 def _dep_satisfied(dep_status: str, final_status: str) -> bool:
     if dep_status == DEP_STATUS_ANY:
         return True
     return dep_status == final_status
+
+
+class _TaskIndex:
+    """key → ids of the tasks whose documents gave that key (``keys(doc)``)
+    when the index last saw them: a superset of the live keys (a key a
+    document later drops stays), so a lookup filters its candidates by
+    the live documents. Built by one scan of the tasks collection and
+    kept by a listener that only records the written ids; they are read
+    at the next lookup. One lookup runs at a time: a second caller waits
+    until the first has noted every id it took, so no caller looks up
+    before a write it could see is noted."""
+
+    def __init__(self, coll, keys) -> None:
+        self._keys = keys
+        self._ids: Dict[object, set] = {}
+        self._pending: set = set()
+        #: the written ids' lock: the listener runs under the collection's
+        #: lock and takes only this one
+        self._pending_lock = threading.Lock()
+        #: one lookup at a time (taken before the collection's lock)
+        self._lock = threading.Lock()
+        coll.add_listener(self._written)
+        self._note(coll.find())
+
+    def _written(self, doc_id) -> None:
+        with self._pending_lock:
+            self._pending.add(doc_id)
+
+    def _note(self, docs) -> None:
+        for doc in docs:
+            for key in self._keys(doc):
+                self._ids.setdefault(key, set()).add(doc["_id"])
+
+    def find(self, coll, key, pred) -> List[dict]:
+        """``coll.find(pred)`` — the same documents in store order — for a
+        ``pred`` that only documents giving ``key`` can pass."""
+        with self._lock:
+            with self._pending_lock:
+                pending, self._pending = self._pending, set()
+            if pending:
+                self._note(coll.find_ids(pending))
+            ids = self._ids.get(key)
+            if not ids:
+                return []
+            order = coll.key_order()
+            ranked = sorted((i for i in ids if i in order), key=order.__getitem__)
+            return [doc for doc in coll.find_ids(ranked) if pred(doc)]
+
+
+def _parents(doc: dict) -> List[str]:
+    return [dep["task_id"] for dep in doc.get("depends_on") or ()]
+
+
+def _group(doc: dict) -> list:
+    group = doc.get("task_group")
+    return [(doc.get("build_id", ""), group)] if group else []
+
+
+#: the task indexes ``mark_end``'s chain reads in place of a scan of
+#: every task: a finished task's dependents, and a build's task group
+_INDEX_KEYS = {"dependents": _parents, "group": _group}
+#: per-store indexes, keyed weakly: they go with the store
+_indexes: "weakref.WeakKeyDictionary[Store, Dict[str, _TaskIndex]]" = (
+    weakref.WeakKeyDictionary())
+_indexes_lock = threading.Lock()
+
+
+def _indexed_find(store: Store, index: str, key, pred) -> List[dict]:
+    """``tasks.find(pred)`` through the store's ``index`` at ``key``."""
+    coll = task_mod.coll(store)
+    with _indexes_lock:
+        per_store = _indexes.setdefault(store, {})
+        idx = per_store.get(index)
+        if idx is None:
+            idx = per_store[index] = _TaskIndex(coll, _INDEX_KEYS[index])
+    return idx.find(coll, key, pred)
 
 
 def update_dependencies_on_finish(
@@ -72,7 +189,7 @@ def update_dependencies_on_finish(
         def affects(doc: dict) -> bool:
             return any(d["task_id"] == parent_id for d in doc.get("depends_on", []))
 
-        for doc in coll.find(affects):
+        for doc in _indexed_find(store, "dependents", parent_id, affects):
             # docs returned by find() alias live store state: mutate a COPY
             # of the edge list and land it via coll.update so concurrent
             # readers never see half-updated edges and the change always
@@ -137,11 +254,11 @@ def check_reset_single_host_task_group(
     reset happened."""
     if not t.is_single_host_task_group():
         return False
-    members = task_mod.find(
-        store,
+    members = [Task.from_doc(d) for d in _indexed_find(
+        store, "group", (t.build_id, t.task_group),
         lambda d: d["build_id"] == t.build_id
         and d["task_group"] == t.task_group,
-    )
+    )]
     if not members:
         return False
     should_reset = False

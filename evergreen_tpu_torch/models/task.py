@@ -3,8 +3,8 @@
 A copy of ``evergreen_tpu/models/task.py``'s ``Dependency``,
 ``DurationStats`` and ``Task`` (field for field), the store reads the
 tick's gather calls and the two writes of a tick: ``mark_scheduled`` and
-``unschedule_stale_underwater``. Times are epoch seconds, durations
-seconds.
+``unschedule_stale_underwater``; the dispatcher's ``is_dispatchable``
+gate. Times are epoch seconds, durations seconds.
 """
 from __future__ import annotations
 
@@ -176,6 +176,13 @@ class Task:
 
     def is_finished(self) -> bool:
         return self.status in TASK_COMPLETED_STATUSES
+
+    def is_dispatchable(self) -> bool:
+        return (
+            self.status == TaskStatus.UNDISPATCHED.value
+            and self.activated
+            and self.priority >= 0
+        )
 
     def is_stepback_activated(self) -> bool:
         return self.activated_by == STEPBACK_TASK_ACTIVATOR

@@ -8,9 +8,9 @@ the ``status`` reply, this process's kernel launch counters
 (``fused_distro_stats`` launches and ``segment_sum`` launches by plan),
 the port's instrument for holding the launches made in worker
 processes; and ``recovery_ms`` in the boot ``hello``, the wall ms of the
-recovery pass. The port's workers answer neither
-``agent_sim`` nor bench mode's ``go`` (dispatch and the benchmark are
-not ported); ``unknown op`` errors come back instead.
+recovery pass. The port's workers do not answer bench mode's ``go``
+(the benchmark is not ported); an ``unknown op`` error comes back
+instead.
 
 One JSON object per line, each carrying an ``op`` field. The PRIMARY
 channel is the worker's stdio — stdin carries supervisor→worker

@@ -44,9 +44,10 @@ ROADMAP):
     CPU, against the shard count), so one card gives local solves in the
     workers, on the card; ``"never"`` elects no leader.
 
-Left out (ROADMAP Queue 1): ``agent_sim`` (dispatch), the ``fleet.round``
-tracing span (tracing), the IPC taps (journal taps), the transport-fault
-seams ``ipc.send`` / ``ipc.recv`` / ``sock.adopt``, and
+Each round is a ``fleet.round`` span (with ``n_shards``) on
+``front_store``'s sink; ``agent_sim`` runs the harness agent in every
+worker. Left out (ROADMAP Queue 1): the IPC taps (journal taps), the
+transport-fault seams ``ipc.send`` / ``ipc.recv`` / ``sock.adopt``, and
 ``attach_fleet_supervisor`` / ``peek_fleet_supervisor`` (the REST admin
 surface, their caller).
 """
@@ -69,6 +70,7 @@ from ..utils import lockcheck as _lockcheck
 from ..utils import metrics as _metrics
 from ..utils.log import get_logger
 from ..utils.retry import Deadline, RetryPolicy
+from ..utils.tracing import Tracer
 from . import manifest as manifest_mod
 from .protocol import EXIT_CRASHED, parse_line, send_msg
 
@@ -336,6 +338,7 @@ class FleetSupervisor:
         rebalance_enabled: bool = False,
         max_handoffs_per_pass: int = 1,
         spawn_crash: Optional[Dict[int, str]] = None,
+        front_store=None,
         orphan_grace_s: float = 300.0,
         orphan_tick_s: Optional[float] = None,
         command_silence_s: float = 0.0,
@@ -350,6 +353,9 @@ class FleetSupervisor:
         self.device = resolve_device(device)
         self.data_dir = data_dir
         self.n_shards = n_shards
+        #: the store the fleet's API surface fronts; its span sink holds
+        #: each round's ``fleet.round`` span (None: the global ring)
+        self.front_store = front_store
         self.ttl_s = ttl_s
         self.hb_interval_s = hb_interval_s
         self.hb_deadline_s = (hb_deadline_s if hb_deadline_s is not None
@@ -746,40 +752,42 @@ class FleetSupervisor:
                 self._needs_reconcile = False
                 self.reconcile_handoffs()
             t0 = _time.perf_counter()
-            ready = [h for h in self.handles.values() if h.state == "ready"]
-            # solver-leader plane: stamp the round and serve ONE stacked
-            # solve over the workers' publications in a side thread; a
-            # shard the serve misses times out into its local solve
-            stamp = None
-            serve = None
-            svc = self.solver_service
-            if svc is not None and len(ready) >= 2:
-                stamp = svc.stamp()
-            if stamp is not None:
-                serve = threading.Thread(
-                    target=svc.serve_round,
-                    args=([h.shard for h in ready], stamp["seq"], stamp["timeout_s"]),
-                    daemon=True, name="fleet-solver-serve")
-                serve.start()
-            reqs = {}
-            for h in ready:
-                reqs[h.shard] = h.next_req()
-                msg = dict(op="tick", now=now, req=reqs[h.shard])
+            tracer = Tracer(self.front_store, "scheduler")
+            with tracer.span("fleet.round", n_shards=self.n_shards):
+                ready = [h for h in self.handles.values() if h.state == "ready"]
+                # solver-leader plane: stamp the round and serve ONE stacked
+                # solve over the workers' publications in a side thread; a
+                # shard the serve misses times out into its local solve
+                stamp = None
+                serve = None
+                svc = self.solver_service
+                if svc is not None and len(ready) >= 2:
+                    stamp = svc.stamp()
                 if stamp is not None:
-                    msg["solver"] = stamp
-                h.send(**msg)
-            results: Dict[int, dict] = {}
-            for h in ready:
-                reply = h.wait_reply("round", self.ROUND_TIMEOUT_S, req=reqs[h.shard])
-                if reply is None or reply.get("skipped"):
-                    continue
-                results[h.shard] = reply
-                h.last_round = reply
-                h.level = str(reply.get("level", "green"))
-            if serve is not None:
-                # join so rounds stay strictly serialized (two serve
-                # threads on one segment set would race)
-                serve.join(timeout=self.ROUND_TIMEOUT_S)
+                    serve = threading.Thread(
+                        target=svc.serve_round,
+                        args=([h.shard for h in ready], stamp["seq"], stamp["timeout_s"]),
+                        daemon=True, name="fleet-solver-serve")
+                    serve.start()
+                reqs = {}
+                for h in ready:
+                    reqs[h.shard] = h.next_req()
+                    msg = dict(op="tick", now=now, req=reqs[h.shard])
+                    if stamp is not None:
+                        msg["solver"] = stamp
+                    h.send(**msg)
+                results: Dict[int, dict] = {}
+                for h in ready:
+                    reply = h.wait_reply("round", self.ROUND_TIMEOUT_S, req=reqs[h.shard])
+                    if reply is None or reply.get("skipped"):
+                        continue
+                    results[h.shard] = reply
+                    h.last_round = reply
+                    h.level = str(reply.get("level", "green"))
+                if serve is not None:
+                    # join so rounds stay strictly serialized (two serve
+                    # threads on one segment set would race)
+                    serve.join(timeout=self.ROUND_TIMEOUT_S)
             self.rounds_done += 1
             outcome = ("full" if len(results) == self.n_shards
                        else ("partial" if results else "empty"))
@@ -809,6 +817,16 @@ class FleetSupervisor:
             if reply is not None:
                 out[h.shard] = reply
         return out
+
+    def agent_sim(self, now: Optional[float] = None) -> Dict[int, dict]:
+        """One harness agent pass in every ready worker
+        (``ShardWorker.op_agent_sim``): finish what is in flight, then
+        dispatch every free host; the ``agent_done`` replies by shard."""
+        return self.broadcast(
+            "agent_sim", "agent_done",
+            timeout_s=self.ROUND_TIMEOUT_S,
+            now=_time.time() if now is None else now,
+        )
 
     def statuses(self) -> Dict[int, dict]:
         return self.broadcast("status", "status")

@@ -67,8 +67,12 @@ one-way partition).
     by copying into its
     segment; JAX's zero-copy ``SolverClient.arena_backing`` is left out.
 
-Left out (ROADMAP Queue 1): ``agent_sim`` (dispatch), ``--bench`` mode
-(the benchmark), the tracing of the tick.
+``agent_sim`` is the harness agent: it finishes every task in flight
+(``mark_task_started``, then ``mark_end`` with success), dispatches
+every free host in id order through a fresh ``DispatcherService``, and
+replies ``agent_done``. Each tick writes its span tree to the worker's
+store (``utils/tracing.py``). Left out (ROADMAP Queue 1): ``--bench``
+mode (the benchmark).
 
 ``--crash seam@idx`` / ``--hang seam:delay_s`` install a fault plan at
 spawn (``utils/faults.py``), and the ``arm_fault`` op installs entries
@@ -505,6 +509,49 @@ class ShardWorker:
         self.send(**reply)
         self.tick_index += 1
 
+    def op_agent_sim(self, msg: dict) -> None:
+        """Deterministic harness agent: finish everything in flight,
+        then dispatch every free host from this shard's queues — the
+        real CAS pair, including its crash seam."""
+        from ..dispatch.assign import assign_next_available_task
+        from ..dispatch.dag_dispatcher import DispatcherService
+        from ..globals import TaskStatus
+        from ..models import host as host_mod
+        from ..models import task as task_mod
+        from ..models.lifecycle import mark_end, mark_task_started
+
+        now = float(msg.get("now") or _time.time())
+        c = task_mod.coll(self.store)
+        in_flight = sorted(
+            d["_id"] for d in c.find(
+                lambda d: d["status"] in (
+                    TaskStatus.DISPATCHED.value, TaskStatus.STARTED.value,
+                )
+            )
+        )
+        for tid in in_flight:
+            mark_task_started(self.store, tid, now=now)
+            mark_end(self.store, tid, TaskStatus.SUCCEEDED.value, now=now)
+        svc = DispatcherService(self.store)  # fresh: no TTL staleness
+        dispatched = 0
+        hosts = sorted(
+            (h for h in host_mod.find(self.store)
+             if h.can_run_tasks() and not h.running_task),
+            key=lambda h: h.id,
+        )
+        for h in hosts:
+            if assign_next_available_task(
+                self.store, svc, h, now=now
+            ) is not None:
+                dispatched += 1
+        unfinished = c.count(
+            lambda d: d["status"] not in (
+                TaskStatus.SUCCEEDED.value, TaskStatus.FAILED.value,
+            )
+        )
+        self.send(op="agent_done", shard=self.shard,
+                  dispatched=dispatched, unfinished=unfinished)
+
     def op_status(self, msg: dict) -> None:
         from ..globals import TaskStatus
         from ..ops.distro_stats import fused_distro_stats
@@ -661,6 +708,7 @@ class ShardWorker:
 
     OPS = {
         "tick": op_tick,
+        "agent_sim": op_agent_sim,
         "status": op_status,
         "load": op_load,
         "handoffs": op_handoffs,

@@ -21,6 +21,9 @@ shapes:
                    changed rows (``Collection.splice_queue``)
   * full rewrite — no usable fingerprint: the whole-doc upsert.
 
+Every shape but a skip wakes the agents parked on the store's long-poll
+hub, when it has one (``dispatch/longpoll.py``).
+
 ``reset()`` drops every fingerprint, so the next tick full-rewrites.
 """
 from __future__ import annotations
@@ -434,6 +437,17 @@ def persist_task_queue(
             store, [tid for tid, _ in cand], now,
             deps_met_ids=[tid for tid, met in cand if met],
         )
+    if not skipped_write:
+        # a persisted content change is the scheduler-side arrival
+        # signal for parked long-pollers (dispatch/longpoll.py): wake a
+        # BOUNDED probe cohort — the ledger plus the completer sweep
+        # (an agent that finishes a task pulls again) drain anything
+        # deeper, and under-estimation decays via re-check claims
+        hub = getattr(store, "_longpoll_hub", None)
+        if hub is not None:
+            hub.notify(
+                distro_id, n_hint=min(32, max(1, len(plan) // 8))
+            )
     return len(plan)
 
 

@@ -63,8 +63,12 @@ its CPU client. ``invalidate(reason)`` drops the columns and the
 mirror's resident buffers, so the next sync rebuilds (counted under
 ``reason``) and uploads in full: the tick calls it with ``"fenced"``
 when the store's lease epoch is superseded. Left out, with the fleet
-planes: the shared-memory publish (``attach_shm_sink``); with the
-recovery pass: its ``"recovery"`` invalidation; the tracing spans.
+planes: the shared-memory publish (``attach_shm_sink``). Each sync
+writes the spans ``resident_apply`` (with its ``rebuild_reason``) and
+``pack`` (``mode="resident"``), and a publish on the CPU an
+``arena_lease``, into the tick's trace (``utils/tracing.py``); the
+mirror's publish leases no arena, so a card tick has no
+``arena_lease`` span.
 """
 from __future__ import annotations
 
@@ -85,6 +89,7 @@ from ..utils import lockcheck as _lockcheck
 from ..utils import metrics as _metrics
 from ..utils.circuit import CircuitBreaker
 from ..utils.log import get_logger
+from ..utils.tracing import Tracer
 from .snapshot import (
     _STATIC_ARENA_COLS,
     FIELD_KINDS,
@@ -329,60 +334,65 @@ class ResidentPlane:
         (``CapacityPlane.build_capacity_page``; None clears it) — a few
         fixed f32 slots refreshed in place every tick, like the time
         columns."""
+        _tracer = Tracer(self._store(), "resident")
         try:
-            prime_gen, dm_dirty, hosts_dirty = cache.drain_resident_deltas()
-            reason = self._gap_reason(solver_distros, prime_gen)
-            if reason is None and not self._breaker.allow(now=now):
-                reason = "breaker-open"
-            if reason is None:
-                try:
-                    self._apply_deltas(
-                        cache, solver_distros, tasks_by_distro,
-                        hosts_by_distro, running_estimates, deps_met,
-                        dm_dirty, hosts_dirty,
-                    )
-                    self._breaker.record_success(now=now)
-                except _NeedRelayout as exc:
-                    reason = f"overflow:{exc}"
-                except Exception as exc:  # noqa: BLE001 — any delta bug
-                    # degrades to a rebuild, never a wrong snapshot
-                    self._breaker.record_failure(now=now, error=repr(exc))
-                    RESIDENT_EVENTS.inc(outcome="delta_failed")
-                    get_logger("resilience").error(
-                        "resident-delta-failed", error=repr(exc)[-300:]
-                    )
-                    reason = "delta-error"
-            if reason == "distro-set":
-                # topology change (enable/disable, a distro added or
-                # removed): splice surviving slabs into the new layout and
-                # pay membership builds only for ADDED distros
-                try:
-                    if self._splice_distro_set(
-                        solver_distros, tasks_by_distro,
-                        hosts_by_distro, running_estimates, deps_met,
-                    ):
-                        reason = None
-                        self.topology_splices += 1
-                        RESIDENT_EVENTS.inc(outcome="topology_splice")
-                        get_logger("scheduler").info(
-                            "resident-topology-splice",
-                            n_distros=len(solver_distros),
+            # resident_apply: drain the cache's delta stream and mutate
+            # the persistent columns in place (or slab-rebuild on a gap)
+            with _tracer.span("resident_apply") as _apply_span:
+                prime_gen, dm_dirty, hosts_dirty = cache.drain_resident_deltas()
+                reason = self._gap_reason(solver_distros, prime_gen)
+                if reason is None and not self._breaker.allow(now=now):
+                    reason = "breaker-open"
+                if reason is None:
+                    try:
+                        self._apply_deltas(
+                            cache, solver_distros, tasks_by_distro,
+                            hosts_by_distro, running_estimates, deps_met,
+                            dm_dirty, hosts_dirty,
                         )
-                except Exception as exc:  # noqa: BLE001 — a splice bug
-                    # degrades to a rebuild, never a wrong plane; charged
-                    # to the breaker like a delta failure
-                    self._breaker.record_failure(now=now, error=repr(exc))
-                    RESIDENT_EVENTS.inc(outcome="splice_failed")
-                    get_logger("resilience").warning(
-                        "resident-splice-failed", error=repr(exc)[-300:],
+                        self._breaker.record_success(now=now)
+                    except _NeedRelayout as exc:
+                        reason = f"overflow:{exc}"
+                    except Exception as exc:  # noqa: BLE001 — any delta bug
+                        # degrades to a rebuild, never a wrong snapshot
+                        self._breaker.record_failure(now=now, error=repr(exc))
+                        RESIDENT_EVENTS.inc(outcome="delta_failed")
+                        get_logger("resilience").error(
+                            "resident-delta-failed", error=repr(exc)[-300:]
+                        )
+                        reason = "delta-error"
+                if reason == "distro-set":
+                    # topology change (enable/disable, a distro added or
+                    # removed): splice surviving slabs into the new layout and
+                    # pay membership builds only for ADDED distros
+                    try:
+                        if self._splice_distro_set(
+                            solver_distros, tasks_by_distro,
+                            hosts_by_distro, running_estimates, deps_met,
+                        ):
+                            reason = None
+                            self.topology_splices += 1
+                            RESIDENT_EVENTS.inc(outcome="topology_splice")
+                            get_logger("scheduler").info(
+                                "resident-topology-splice",
+                                n_distros=len(solver_distros),
+                            )
+                    except Exception as exc:  # noqa: BLE001 — a splice bug
+                        # degrades to a rebuild, never a wrong plane; charged
+                        # to the breaker like a delta failure
+                        self._breaker.record_failure(now=now, error=repr(exc))
+                        RESIDENT_EVENTS.inc(outcome="splice_failed")
+                        get_logger("resilience").warning(
+                            "resident-splice-failed", error=repr(exc)[-300:],
+                        )
+                if reason is not None:
+                    self._rebuild(
+                        solver_distros, tasks_by_distro, hosts_by_distro,
+                        running_estimates, deps_met, prime_gen, reason,
                     )
-            if reason is not None:
-                self._rebuild(
-                    solver_distros, tasks_by_distro, hosts_by_distro,
-                    running_estimates, deps_met, prime_gen, reason,
-                )
-            self._refresh_time_columns(now)
-            self._set_capacity_page(capacity_page)
+                self._refresh_time_columns(now)
+                self._set_capacity_page(capacity_page)
+                _apply_span["attributes"]["rebuild_reason"] = reason or ""
         except Exception as exc:  # noqa: BLE001 — full fallback: the tick
             # proceeds on build_snapshot; state is dropped so the next
             # sync starts clean
@@ -394,7 +404,10 @@ class ResidentPlane:
             self.invalidate("error")
             return None
         try:
-            return self._publish(now, arena_pool)
+            # pack: ship the dirty spans to the device mirror, or copy the
+            # truth into a leased transfer arena
+            with _tracer.span("pack", mode="resident"):
+                return self._publish(now, arena_pool)
         except MirrorError:
             # the card refused an upload: drop the plane (and the
             # mirror's buffers) so a later sync starts clean, and let the
@@ -1581,7 +1594,8 @@ class ResidentPlane:
             self._spans = {}
             arena = _MirrorArena(self._truth, dev_bufs)
         else:
-            arena = arena_for_dims(self.dims, arena_pool)
+            with Tracer(self._store(), "resident").span("arena_lease"):
+                arena = arena_for_dims(self.dims, arena_pool)
             for kind, buf in arena.buffers.items():
                 np.copyto(buf, self._truth.buffers[kind])
         arrays = {

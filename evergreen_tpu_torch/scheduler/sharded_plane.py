@@ -52,11 +52,17 @@ durable shard stores (final commit and checkpoint) and releases their
 leases. The release and prime legs each commit as one WAL group, and
 the shard ticks run with the round's ``TickOptions.async_persist``.
 
-Left out, with what brings them: ``assign_next_task`` and the host routing it reads (``store_of``,
-``host_shard``, ``find_host``: dispatch); the constructor's
-``topology`` and ``max_handoffs_per_round`` options (the cron front
-end's sharding settings), fixed here at the shard count's topology and
-one handoff per round. ``ShardedScheduler(device=None)`` runs on the
+**Agent pulls.** ``assign_next_task`` (the caller:
+``dispatch/assign.py::assign_next_available_task_fleet``) routes a host
+to the shard that owns its distro (``find_host``, ``host_shard``,
+``store_of``; the host cache drops a migrated shard's entries) and runs
+the classic CAS-pair assignment there through that shard's
+``DispatcherService``.
+
+Left out, with what brings them: the constructor's ``topology`` and
+``max_handoffs_per_round`` options (the cron front end's sharding
+settings), fixed here at the shard count's topology and one handoff per
+round. ``ShardedScheduler(device=None)`` runs on the
 CUDA card and raises without one; pass ``device="cpu"`` for the CPU.
 """
 from __future__ import annotations
@@ -71,6 +77,8 @@ import torch
 
 from ..device import resolve_device
 from ..globals import MAX_INTENT_HOSTS_IN_FLIGHT, TaskStatus
+from ..models import host as host_mod
+from ..models.host import Host
 from ..ops._build import KernelError
 from ..ops.resident_ops import MirrorError
 from ..ops.solve import run_solve_packed
@@ -488,6 +496,10 @@ class ShardedScheduler:
         #: the front store whose ladder receives the fleet fuse as a
         #: floor (attach_sharded_plane sets it)
         self.front_store: Optional[Store] = None
+        #: per-shard dispatch services, and the agent pull's host →
+        #: shard cache (dispatch/assign.py)
+        self._dispatchers: Dict[int, object] = {}
+        self._host_shard: Dict[str, int] = {}
         self._load_handoff_state()
         self.refresh_affinity()
 
@@ -591,6 +603,48 @@ class ShardedScheduler:
                 self.topology.overrides[distro_id] = k
                 return k
         return shard  # unplaced (seeding) — the hash owner
+
+    def store_of(self, distro_id: str) -> Store:
+        return self.stores[self.owner_of(distro_id)]
+
+    def host_shard(self, host: Host) -> int:
+        shard = self._host_shard.get(host.id)
+        if shard is None:
+            shard = self.owner_of(host.distro_id)
+            self._host_shard[host.id] = shard
+        return shard
+
+    def find_host(self, host_id: str) -> Optional[Host]:
+        """Global agent pull, step 1: locate the host document wherever
+        its distro's shard lives (cached; a cache miss scans shards)."""
+        shard = self._host_shard.get(host_id)
+        order = (
+            [shard] + [k for k in range(self.n_shards) if k != shard]
+            if shard is not None else range(self.n_shards)
+        )
+        for k in order:
+            doc = host_mod.coll(self.stores[k]).get(host_id)
+            if doc is not None:
+                self._host_shard[host_id] = k
+                return Host.from_doc(doc)
+        return None
+
+    def assign_next_task(self, host: Host, now: Optional[float] = None):
+        """Global agent pull over shard-local queues: route the host to
+        the shard owning its distro and run the classic CAS-pair
+        assignment there (dispatch/assign.py)."""
+        from ..dispatch.assign import assign_next_available_task
+        from ..dispatch.dag_dispatcher import DispatcherService
+
+        shard = self.host_shard(host)
+        svc = self._dispatchers.get(shard)
+        if svc is None:
+            svc = self._dispatchers.setdefault(
+                shard, DispatcherService(self.stores[shard])
+            )
+        return assign_next_available_task(
+            self.stores[shard], svc, host, now=now
+        )
 
     # -- the tick round -------------------------------------------------- #
 
@@ -703,8 +757,6 @@ class ShardedScheduler:
         lowest shard ids). All None when intents are off this round."""
         if not opts.create_intent_hosts:
             return [None] * self.n_shards
-        from ..models import host as host_mod
-
         if opts.intent_budget is not None:
             fleet = max(0, int(opts.intent_budget))
         else:
@@ -938,6 +990,13 @@ class ShardedScheduler:
     def _apply_ownership(self, rec: dict) -> None:
         for did in rec["group"]:
             self.topology.overrides[did] = rec["to"]
+        # host routing for the moved distros changes shard
+        self._host_shard = {
+            hid: k for hid, k in self._host_shard.items()
+            if k != rec["from"]
+        }
+        self._dispatchers.pop(rec["from"], None)
+        self._dispatchers.pop(rec["to"], None)
 
     # -- recovery --------------------------------------------------------- #
 

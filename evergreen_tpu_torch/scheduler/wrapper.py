@@ -42,8 +42,13 @@ tick) and ``force_dims``. A shard worker in harness mode
 (``runtime/worker.py``) turns ``underwater_unschedule`` off. The tick
 always plans solver distros with the batched solve and caps in-flight
 intents at ``MAX_INTENT_HOSTS_IN_FLIGHT``: the JAX options
-``planner_version`` and ``max_intent_hosts`` are left out; with tracing:
-the spans and ``TickResult.trace_id``.
+``planner_version`` and ``max_intent_hosts`` are left out (the root
+span's ``planner`` attribute is ``"tpu"``). The tick is one trace
+(``utils/tracing.py``): the root ``tick`` span, its phase children
+(``delta_drain``, ``pack``, ``solve``, ``unpack``, ``persist``,
+``tick_stats``, ``wal_commit``; the resident plane's ``resident_apply``,
+``pack`` and ``arena_lease``), ``TickResult.trace_id``, and
+``store._last_tick_trace`` for the dispatch assigns that follow.
 """
 from __future__ import annotations
 
@@ -84,6 +89,7 @@ from ..utils import faults
 from ..utils import lockcheck as _lockcheck
 from ..utils import metrics as _metrics
 from ..utils import overload as overload_mod
+from ..utils import tracing as _tracing
 from ..utils.circuit import CircuitBreaker
 from ..utils.log import get_logger
 from . import cmp_prioritizer, serial
@@ -262,6 +268,11 @@ class TickResult:
     #: the overload-ladder level this tick planned under
     #: ("green" | "yellow" | "red" | "black")
     overload: str = "green"
+    #: id of the tick's trace (utils/tracing.py): the whole pipeline —
+    #: delta drain → pack → solve → unpack → persist → WAL commit (and
+    #: the async flusher's write, and the dispatch assigns that follow)
+    #: — is one span tree under this id; "" when tracing is disabled
+    trace_id: str = ""
     #: per-distro solve score terms (scheduler/provenance.py) so "why is
     #: task X at rank Y" is answerable after the tick; None on serial /
     #: degraded ticks
@@ -510,19 +521,31 @@ def _solve_bounded(
     Without one it runs inline. The solve seam fires inside the bounded
     region so injected hangs are caught like real ones. ``solve_fn``
     (the sharded plane's stacked-round barrier, or a solve on another
-    device) replaces ``run_solve_packed`` on the card when given."""
+    device) replaces ``run_solve_packed`` on the card when given. The
+    solve runs under the device profiler when the tracer config names a
+    directory (``utils/tracing.py::maybe_device_profile``, once per
+    directory per process); a solve abandoned at its deadline before it
+    began does not open it."""
+    abandoned = threading.Event()
 
     def work():
         faults.fire("scheduler.solve")
-        return (solve_fn or run_solve_packed)(snapshot)
+        if abandoned.is_set():
+            return (solve_fn or run_solve_packed)(snapshot)
+        with _tracing.maybe_device_profile(store):
+            return (solve_fn or run_solve_packed)(snapshot)
 
     if deadline_s <= 0:
         return work()
     result: list = []
+    # the worker thread parents any spans it emits into the caller's
+    # tick trace instead of rooting fresh
+    ctx = _tracing.capture_context()
 
     def runner():
         try:
-            result.append(("ok", work()))
+            with _tracing.attached(ctx):
+                result.append(("ok", work()))
         except BaseException as exc:  # noqa: BLE001 — relayed to caller
             result.append(("err", exc))
 
@@ -530,6 +553,7 @@ def _solve_bounded(
     th.start()
     th.join(deadline_s)
     if th.is_alive() or not result:
+        abandoned.set()
         raise TimeoutError(
             f"solve exceeded its {deadline_s}s deadline"
         )
@@ -548,11 +572,32 @@ def run_tick(
     """One full scheduling tick over every distro. The packed solve and
     the two-call capacity program run on ``device``: the CUDA card when
     None (raising without one), the CPU only when the caller passes
-    ``device="cpu"``."""
+    ``device="cpu"``. The whole tick is ONE trace: a root ``tick`` span
+    here, phase spans in the body, and the async WAL flusher and later
+    dispatch assigns parenting in through the captured context
+    (``TickResult.trace_id``)."""
     dev = resolve_device(device)
     opts = opts or TickOptions()
     now = _time.time() if now is None else now
-    result = _run_tick_guarded(store, opts, now, dev)
+    # shard identity rides on every tick span, so a per-shard trace is
+    # attributable to the shard that produced it
+    _span_attrs = {"planner": PlannerVersion.TPU.value}
+    _shard = getattr(store, "shard_id", None)
+    if _shard is not None:
+        _span_attrs["shard"] = _shard
+    with _tracing.Tracer(store, "scheduler").span(
+        "tick", **_span_attrs
+    ) as _tick_span:
+        result = _run_tick_guarded(store, opts, now, dev)
+        result.trace_id = _tick_span.get("trace_root", "")
+        _tick_span["attributes"].update(
+            n_tasks=result.n_tasks,
+            n_distros=result.n_distros,
+            planner_used=result.planner_used,
+            degraded=result.degraded,
+            overload=result.overload,
+            shed=list(result.shed),
+        )
     TICK_MS.observe(result.total_ms)
     TICKS_TOTAL.inc(outcome=result.degraded or "ok")
     return result
@@ -564,6 +609,11 @@ def _run_tick_guarded(
     t0 = _time.perf_counter()
     pstate = persister_state_for(store)
     _rlog = get_logger("resilience")
+
+    # dispatch assigns that follow this tick parent into its trace (the
+    # "…→ dispatch" leg of the tick span tree); harmless when tracing is
+    # off — the context is None and assigns root themselves
+    store._last_tick_trace = _tracing.capture_context()
 
     def _fenced_result() -> TickResult:
         # the holder's lease epoch was superseded: plan nothing, write
@@ -693,15 +743,17 @@ def _run_tick_body(
     # delta drain: the TickCache's maintained views (or the cold
     # finders) become this tick's solver inputs
     tick_cache = tick_cache_for(store) if opts.use_cache else None
+    _tracer = _tracing.Tracer(store, "scheduler")
     t_gather = _time.perf_counter()
-    (
-        distros,
-        tasks_by_distro,
-        hosts_by_distro,
-        running_estimates,
-        deps_met,
-    ) = (tick_cache.gather(now) if tick_cache is not None
-         else gather_tick_inputs(store, now))
+    with _tracer.span("delta_drain", cached=opts.use_cache):
+        (
+            distros,
+            tasks_by_distro,
+            hosts_by_distro,
+            running_estimates,
+            deps_met,
+        ) = (tick_cache.gather(now) if tick_cache is not None
+             else gather_tick_inputs(store, now))
     TICK_PHASE_MS.observe(
         (_time.perf_counter() - t_gather) * 1e3, phase="delta_drain"
     )
@@ -810,29 +862,40 @@ def _run_tick_body(
                     arena_pool=arena_pool, capacity_page=capacity_page,
                 )
             if snapshot is None:
-                snapshot = build_snapshot(
-                    solver_distros, tasks_by_distro, hosts_by_distro,
-                    running_estimates, deps_met, now,
-                    force_dims=opts.force_dims,
-                    dims_memo=dims_memo if opts.force_dims is None else None,
-                    memb_memo=memb_memo, arena_pool=arena_pool,
-                )
-                # page columns are packed post-build (and re-zeroed when
-                # absent: pool-leased arenas can carry an earlier page)
-                pack_capacity_page(snapshot.arrays, capacity_page)
+                # full-rebuild pack (the resident plane packs inside its
+                # own "pack" span)
+                with _tracer.span("pack", mode="rebuild"):
+                    snapshot = build_snapshot(
+                        solver_distros, tasks_by_distro, hosts_by_distro,
+                        running_estimates, deps_met, now,
+                        force_dims=opts.force_dims,
+                        dims_memo=(dims_memo if opts.force_dims is None
+                                   else None),
+                        memb_memo=memb_memo, arena_pool=arena_pool,
+                    )
+                    # page columns are packed post-build (and re-zeroed
+                    # when absent: pool-leased arenas can carry an
+                    # earlier page)
+                    pack_capacity_page(snapshot.arrays, capacity_page)
             t2 = _time.perf_counter()
-            out = _solve_bounded(
-                store, snapshot, opts.solve_deadline_s,
-                solve_fn=(opts.solve_fn
-                          or functools.partial(run_solve_packed, device=dev)),
-            )
+            # the bounded solve (under the device profiler when the
+            # tracer config names a directory). run_solve_packed
+            # synchronises the card before its fetch, so the device time
+            # lands in THIS span instead of the first consumer's
+            with _tracer.span("solve", deadline_s=opts.solve_deadline_s):
+                out = _solve_bounded(
+                    store, snapshot, opts.solve_deadline_s,
+                    solve_fn=(opts.solve_fn or functools.partial(
+                        run_solve_packed, device=dev)),
+                )
             t3 = _time.perf_counter()
             snapshot_ms = (t2 - t1) * 1e3
             solve_ms = (t3 - t2) * 1e3
             TICK_PHASE_MS.observe(snapshot_ms, phase="pack")
             TICK_PHASE_MS.observe(solve_ms, phase="solve")
-            (plans, sort_values, infos, new_hosts, met_cols,
-             info_epoch, provenance) = _unpack_solve(snapshot, out)
+            with _tracer.span("unpack"):
+                (plans, sort_values, infos, new_hosts, met_cols,
+                 info_epoch, provenance) = _unpack_solve(snapshot, out)
             TICK_PHASE_MS.observe(
                 (_time.perf_counter() - t3) * 1e3, phase="unpack"
             )
@@ -981,110 +1044,125 @@ def _run_tick_body(
             return "budget-exceeded"
         return ""
 
+    # persist phase span: per-distro failures are caught inside the
+    # loop; the finally closes it with the write shapes the delta
+    # persister chose this tick (skip / column-patch / splice / rewrite)
     t_persist = _time.perf_counter()
-    for d in distros:
-        plan = plans.get(d.id, [])
-        is_alias = d.id.endswith(ALIAS_SUFFIX)
-        base_id = d.id[: -len(ALIAS_SUFFIX)] if is_alias else d.id
-        info = infos.get(d.id, DistroQueueInfo())
-        info.secondary_queue = is_alias
+    with _tracer.span("persist", n_distros=len(distros)) as _persist_rec:
+        _shapes_before = (
+            pstate.skipped, pstate.patched, pstate.spliced, pstate.rewritten,
+        )
         try:
-            queues[d.id] = persist_task_queue(
-                store,
-                base_id,
-                plan,
-                sort_values.get(d.id, {}),
-                met_cols.get(d.id, deps_met),
-                info,
-                opts.max_scheduled_per_distro,
-                secondary=is_alias,
-                now=now,
-                state=pstate,
-                # the cache's per-distro unstamped set collapses the
-                # candidate scan to the handful of fresh tasks (alias
-                # plans hold other distros' tasks — those scan)
-                stamp_hint=(
-                    tick_cache.stamp_candidates(d.id)
-                    if tick_cache is not None and not is_alias else None
-                ),
-            )
-        except Exception as exc:  # noqa: BLE001 — isolate per distro
-            queues[d.id] = 0
-            # the doc may be half-written: drop its fingerprint so the
-            # next tick full-rewrites instead of patching a broken base
-            pstate._fps.pop((base_id, is_alias), None)
-            degraded = degraded or "persist-failed"
-            TICK_DEGRADED.inc(cause="persist_failed")
-            _rlog.error(
-                "queue-persist-failed",
-                distro=base_id,
-                error=repr(exc)[-300:],
-            )
-            continue
-        if is_alias:
-            continue  # alias rows never spawn hosts (units/scheduler_alias.go)
-        if opts.create_intent_hosts:
-            want = new_hosts.get(d.id, 0)
-            n = min(want, budget)
-            if want > n:
-                # the allocator asked for more than the in-flight budget
-                # allows: count every rejected host so a starved fleet
-                # budget is visible, never silent
-                INTENT_BUDGET_CLAMPED.inc(want - n)
-            budget -= n
-            created = []
-            try:
-                for _ in range(n):
-                    intent = new_intent(d.id, d.provider)
-                    host_mod.insert(store, intent)
-                    created.append(intent)
-            except Exception as exc:  # noqa: BLE001 — isolate per distro
-                degraded = degraded or "persist-failed"
-                TICK_DEGRADED.inc(cause="persist_failed")
-                _rlog.error(
-                    "intent-create-failed",
-                    distro=base_id,
-                    error=repr(exc)[-300:],
-                )
-            intent_hosts.extend(created)
-            if created:
-                # event emission is optional work: over the tick budget
-                # (or under brownout) it is shed before anything that
-                # affects planning
-                shed_reason = _shed_optional()
-                if shed_reason:
-                    if "events" not in shed:
-                        shed.append("events")
-                        overload_mod.record_shed(
-                            store, "tick", "events", detail=shed_reason
-                        )
-                    continue
+            for d in distros:
+                plan = plans.get(d.id, [])
+                is_alias = d.id.endswith(ALIAS_SUFFIX)
+                base_id = d.id[: -len(ALIAS_SUFFIX)] if is_alias else d.id
+                info = infos.get(d.id, DistroQueueInfo())
+                info.secondary_queue = is_alias
                 try:
-                    event_mod.log(
+                    queues[d.id] = persist_task_queue(
                         store,
-                        event_mod.RESOURCE_HOST,
-                        "HOSTS_CREATED",
-                        d.id,
-                        {"count": len(created)},
-                        timestamp=now,
+                        base_id,
+                        plan,
+                        sort_values.get(d.id, {}),
+                        met_cols.get(d.id, deps_met),
+                        info,
+                        opts.max_scheduled_per_distro,
+                        secondary=is_alias,
+                        now=now,
+                        state=pstate,
+                        # the cache's per-distro unstamped set collapses the
+                        # candidate scan to the handful of fresh tasks (alias
+                        # plans hold other distros' tasks — those scan)
+                        stamp_hint=(
+                            tick_cache.stamp_candidates(d.id)
+                            if tick_cache is not None and not is_alias else None
+                        ),
                     )
-                except Exception as exc:  # noqa: BLE001 — events are
-                    # optional work; a storage fault here never kills
-                    # the tick
+                except Exception as exc:  # noqa: BLE001 — isolate per distro
+                    queues[d.id] = 0
+                    # the doc may be half-written: drop its fingerprint so the
+                    # next tick full-rewrites instead of patching a broken base
+                    pstate._fps.pop((base_id, is_alias), None)
                     degraded = degraded or "persist-failed"
                     TICK_DEGRADED.inc(cause="persist_failed")
                     _rlog.error(
-                        "event-emit-failed",
+                        "queue-persist-failed",
                         distro=base_id,
                         error=repr(exc)[-300:],
                     )
+                    continue
+                if is_alias:
+                    continue  # alias rows never spawn hosts (units/scheduler_alias.go)
+                if opts.create_intent_hosts:
+                    want = new_hosts.get(d.id, 0)
+                    n = min(want, budget)
+                    if want > n:
+                        # the allocator asked for more than the in-flight budget
+                        # allows: count every rejected host so a starved fleet
+                        # budget is visible, never silent
+                        INTENT_BUDGET_CLAMPED.inc(want - n)
+                    budget -= n
+                    created = []
+                    try:
+                        for _ in range(n):
+                            intent = new_intent(d.id, d.provider)
+                            host_mod.insert(store, intent)
+                            created.append(intent)
+                    except Exception as exc:  # noqa: BLE001 — isolate per distro
+                        degraded = degraded or "persist-failed"
+                        TICK_DEGRADED.inc(cause="persist_failed")
+                        _rlog.error(
+                            "intent-create-failed",
+                            distro=base_id,
+                            error=repr(exc)[-300:],
+                        )
+                    intent_hosts.extend(created)
+                    if created:
+                        # event emission is optional work: over the tick budget
+                        # (or under brownout) it is shed before anything that
+                        # affects planning
+                        shed_reason = _shed_optional()
+                        if shed_reason:
+                            if "events" not in shed:
+                                shed.append("events")
+                                overload_mod.record_shed(
+                                    store, "tick", "events", detail=shed_reason
+                                )
+                            continue
+                        try:
+                            event_mod.log(
+                                store,
+                                event_mod.RESOURCE_HOST,
+                                "HOSTS_CREATED",
+                                d.id,
+                                {"count": len(created)},
+                                timestamp=now,
+                            )
+                        except Exception as exc:  # noqa: BLE001 — events are
+                            # optional work; a storage fault here never kills
+                            # the tick
+                            degraded = degraded or "persist-failed"
+                            TICK_DEGRADED.inc(cause="persist_failed")
+                            _rlog.error(
+                                "event-emit-failed",
+                                distro=base_id,
+                                error=repr(exc)[-300:],
+                            )
+        finally:
+            _persist_rec["attributes"].update(
+                skip=pstate.skipped - _shapes_before[0],
+                patch=pstate.patched - _shapes_before[1],
+                splice=pstate.spliced - _shapes_before[2],
+                rewrite=pstate.rewritten - _shapes_before[3],
+            )
     TICK_PHASE_MS.observe(
         (_time.perf_counter() - t_persist) * 1e3, phase="persist"
     )
 
     # Stats are the FIRST work shed under the tick budget (before events,
-    # long before planning): the time-to-empty estimate is telemetry,
-    # not a decision.
+    # long before planning): the time-to-empty estimate and its span are
+    # telemetry, not decisions.
     worst = ("", 0.0)
     stats_shed_reason = _shed_optional()
     if stats_shed_reason:
@@ -1107,6 +1185,20 @@ def _run_tick_body(
             )
             tte[d.id] = round(info.expected_duration_s / capacity, 1)
         worst = max(tte.items(), key=lambda kv: kv[1]) if tte else ("", 0.0)
+        # the per-solve timing span (the reference's scheduler span
+        # attributes; sink: the store's spans collection)
+        with _tracer.span(
+            "tick_stats",
+            n_tasks=n_tasks,
+            n_distros=len(distros),
+            snapshot_ms=round(snapshot_ms, 2),
+            solve_ms=round(solve_ms, 2),
+            total_ms=round((_time.perf_counter() - t0) * 1e3, 2),
+            planner=PlannerVersion.TPU.value,
+            worst_time_to_empty_s=worst[1],
+            worst_time_to_empty_distro=worst[0],
+        ):
+            pass
     if shed:
         TICK_DEGRADED.inc(cause="shed")
         _rlog.warning(
@@ -1123,7 +1215,10 @@ def _run_tick_body(
     # store-latency EWMA
     committed[0] = True
     t_commit = _time.perf_counter()
-    commit_reason = _commit_tick_group(store, opts)
+    with _tracer.span(
+        "wal_commit", mode="async" if opts.async_persist else "sync"
+    ):
+        commit_reason = _commit_tick_group(store, opts)
     commit_ms = (_time.perf_counter() - t_commit) * 1e3
     TICK_PHASE_MS.observe(commit_ms, phase="wal_commit")
     monitor.observe("store_latency_ms", commit_ms, ewma=0.4)

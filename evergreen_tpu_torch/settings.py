@@ -3,8 +3,9 @@
 A copy of the part of ``evergreen_tpu/settings.py`` the port needs:
 ``ConfigSection`` with its field-level overrides, and the
 ``service_flags``, ``capacity``, ``overrides``, ``release_mode``,
-``overload`` and ``sharding`` sections (``models/cost.py`` registers
-``cost`` as the JAX package's model does). Sections live in the same
+``overload``, ``sharding``, ``task_limits``, ``read_path`` and
+``tracer`` sections (``models/cost.py`` registers ``cost`` as the JAX
+package's model does). Sections live in the same
 ``config`` collection under the same ``_id`` with the same fields, so a
 section one package writes reads back the same in the other
 (``tests/test_torch_store.py``). The registry holds these sections only,
@@ -437,4 +438,77 @@ class ShardingConfig(ConfigSection):
             return "solver_lease_ttl_s must be > 0"
         if self.solver_timeout_s <= 0:
             return "solver_timeout_s must be > 0"
+        return ""
+
+
+@register_section
+@dataclasses.dataclass
+class TaskLimitsConfig(ConfigSection):
+    """reference config_task_limits.go. The dispatcher's large-parser
+    guard reads ``max_concurrent_large_parser_project_tasks``
+    (``dispatch/assign.py``)."""
+
+    section_id = "task_limits"
+
+    max_tasks_per_version: int = 0
+    max_pending_generated_tasks: int = 0
+    max_generate_task_json_size_kb: int = 0
+    max_concurrent_large_parser_project_tasks: int = 0
+    max_hourly_patch_tasks: int = 0
+    max_exec_timeout_secs: int = 0
+    max_task_execution: int = 9  # max automatic restarts
+
+
+@register_section
+@dataclasses.dataclass
+class ReadPathConfig(ConfigSection):
+    """Read-serving plane knobs: the long-poll hub's two
+    (``dispatch/longpoll.py::hub_for``). The JAX section's other fields
+    configure the REST surface's follower reads, response cache and
+    long-poll wait, which are not ported: a document JAX writes reads
+    back here without them, and an override of one is refused as
+    unknown."""
+
+    section_id = "read_path"
+
+    #: condition-variable shards the parked agents spread across (bounds
+    #: the wake-storm convoy on any single mutex)
+    longpoll_shards: int = 32
+    #: parked waiters re-check their queue generation at least this
+    #: often even without a wake (starvation bound for bounded wakes)
+    longpoll_recheck_s: float = 1.0
+
+    def validate_and_default(self) -> str:
+        if self.longpoll_recheck_s <= 0:
+            return "long-poll waits must be >= 0 (recheck > 0)"
+        if self.longpoll_shards < 1:
+            self.longpoll_shards = 1
+        return ""
+
+
+@register_section
+@dataclasses.dataclass
+class TracerConfig(ConfigSection):
+    """OTel-shaped trace export (reference config_tracer.go:11-23). The
+    port reads ``xla_profile_dir`` (``utils/tracing.py::
+    maybe_device_profile``: a torch.profiler capture of one solve); the
+    field keeps the JAX package's name so one document serves both. The
+    exporter the other fields configure is not ported."""
+
+    section_id = "tracer"
+
+    enabled: bool = False
+    collector_endpoint: str = ""
+    sample_ratio: float = 1.0
+    #: when set, one solve per process runs under the device profiler
+    #: and writes its trace here
+    xla_profile_dir: str = ""
+
+    def validate_and_default(self) -> str:
+        if not isinstance(self.sample_ratio, (int, float)) or (
+            not 0.0 <= self.sample_ratio <= 1.0
+        ):
+            return "sample_ratio must be a number within [0, 1]"
+        if self.enabled and not self.collector_endpoint:
+            return "enabled tracer needs a collector_endpoint"
         return ""

@@ -45,9 +45,12 @@ store: a process killed mid-run resumes with every document intact.
   drops the records of a superseded epoch that land past a newer fence
   point.
 
-Left out, with the scenario trace capture that is their only caller:
-the journal taps (``add_journal_tap``); with tracing: the flusher's
-``wal.flush`` span and the frame's trace context.
+A queued frame carries the committing tick's trace context, and the
+flusher writes its ``wal.flush`` span (ring only, with ``n_ops``) under
+it, so the write on the ``wal-group-flusher`` thread parents into that
+tick's trace (``utils/tracing.py``). Left out, with the scenario trace
+capture that is their only caller: the journal taps
+(``add_journal_tap``).
 """
 from __future__ import annotations
 
@@ -62,6 +65,7 @@ from typing import Dict, Optional
 
 from ..utils import lockcheck as _lockcheck
 from ..utils import metrics as _metrics
+from ..utils import tracing as _tracing
 from ..utils.log import get_logger
 from . import integrity as _integrity
 from .lease import EpochFencedError, FileLease
@@ -496,7 +500,7 @@ class DurableStore(Store):
         with self._flush_cv:
             if not self._flush_queue and not self._flush_busy:
                 return False
-            self._flush_queue.append(("op", line))
+            self._flush_queue.append(("op", line, None))
             self._flush_cv.notify()
             return True
 
@@ -525,7 +529,11 @@ class DurableStore(Store):
                     self._flusher = threading.Thread(
                         target=self._flush_loop, daemon=True, name="wal-group-flusher")
                     self._flusher.start()
-                self._flush_queue.append(("frame", records))
+                # the frame carries the committing tick's trace context
+                # so the flusher's write span parents into the SAME tick
+                # trace instead of rooting fresh on its own thread
+                self._flush_queue.append(
+                    ("frame", records, _tracing.capture_context()))
                 self._flush_cv.notify()
 
     def _flush_loop(self) -> None:
@@ -535,12 +543,20 @@ class DurableStore(Store):
                     self._flush_busy = False
                     self._flush_cv.notify_all()
                     self._flush_cv.wait()
-                kind, payload = self._flush_queue.pop(0)
+                kind, payload, ctx = self._flush_queue.pop(0)
                 self._flush_busy = True
             try:
                 if kind == "frame":
+                    # ring-only span: the flusher must not journal a span
+                    # document while it holds the write path (and the
+                    # frame's tick already has a durable trace)
                     t0 = _time.perf_counter()
-                    self.commit_group_inline(payload)
+                    with _tracing.attached(ctx), _tracing.Tracer(
+                        self, "storage"
+                    ).span(
+                        "wal.flush", store_write=False, n_ops=len(payload)
+                    ):
+                        self.commit_group_inline(payload)
                     WAL_FLUSH_MS.observe((_time.perf_counter() - t0) * 1e3)
                 else:
                     # a queued per-op line stays a plain record and fires

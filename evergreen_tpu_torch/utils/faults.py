@@ -33,6 +33,10 @@ firing is counted in ``faults_fired_total{seam}`` and logged. Seams:
   ``snapshot.write``  mid-write of a checkpoint's snapshot (``short``
                       truncates it after the rename, ``bitrot`` flips a
                       byte of it)
+  ``dispatch.assign`` inside the dispatcher's CAS pair, after the host's
+                      claim and before the task's dispatched mark
+                      (dispatch/assign.py): a crash there leaves the
+                      half-assignment the recovery pass releases
   ``recovery.pass``   the startup recovery pass's entry
                       (scheduler/recovery.py): a shard worker's boot kill
                       point (``runtime/worker.py --crash``)

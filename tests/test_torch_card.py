@@ -405,6 +405,23 @@ def test_card_tick_raises_a_failed_launch(kernel, cuda_device, monkeypatch):
     assert store.collection("task_queues").find() == []
 
 
+#: what two runs of one tick cannot agree on in a span document: its ids
+#: (each process numbers its spans), times and thread, and the time
+#: attributes
+_SPAN_MASK = ("_id", "parent", "trace_root", "started_at", "duration_ms", "thread")
+_SPAN_TIMES = ("snapshot_ms", "solve_ms", "total_ms")
+
+
+def _canon_span(doc):
+    """A span document with ``_SPAN_MASK`` and the time attributes
+    masked; any other document as it is."""
+    if "trace_root" not in doc:
+        return doc
+    return dict({k: v for k, v in doc.items() if k not in _SPAN_MASK},
+                attributes={k: v for k, v in doc["attributes"].items()
+                            if k not in _SPAN_TIMES})
+
+
 def _tick_store(distros, tbd, hbd):
     from evergreen_tpu_torch.models import distro as distro_mod
     from evergreen_tpu_torch.models import host as host_mod
@@ -514,10 +531,16 @@ def test_card_durable_async_tick_writes_the_cpu_documents(cuda_device, tmp_path,
             host_mod.insert_many(store, hs)
 
     def frames(key):
+        """The group frames' records: events without their documents,
+        span documents masked (``_canon_span``), and no ``arena_lease``
+        span (the CPU publish leases an arena, the card's mirror none)."""
         with open(os.path.join(str(tmp_path / key), WAL_FILE)) as fh:
             recs = [json.loads(line) for line in fh]
-        return [[{k: v for k, v in r.items() if k != "d" or r["c"] != "events"}
-                 for r in f["rs"]] for f in recs if f["o"] == "g"]
+        return [[{k: (_canon_span(v) if k == "d" else v) for k, v in r.items()
+                  if k != "d" or r["c"] != "events"}
+                 for r in f["rs"]
+                 if not (r["c"] == "spans" and r["d"]["name"] == "arena_lease")]
+                for f in recs if f["o"] == "g"]
 
     opts = wrapper.TickOptions(use_cache=True, async_persist=True,
                                create_intent_hosts=False)
@@ -781,7 +804,8 @@ def test_card_process_fleet_writes_the_cpu_documents(cuda_device, tmp_path):
     solver="always")``: two worker processes on the card, the leader
     here) and the same fleet on the CPU, two rounds with the service's
     options: every shard's documents equal (intent and event ids,
-    intents' secrets and creation times aside), and the fleet's launches
+    intents' secrets and creation times aside; span documents masked by
+    ``_canon_span``), and the fleet's launches
     — the leader's here, the workers' from their ``status`` — are one
     ``fused_distro_stats`` per block solved on the card."""
     import json
@@ -793,6 +817,8 @@ def test_card_process_fleet_writes_the_cpu_documents(cuda_device, tmp_path):
         if "payload" in doc:
             return dict(doc, payload={c: [canon(d) for d in ds]
                                       for c, ds in doc["payload"].items()})
+        if "trace_root" in doc:
+            return _canon_span(doc)
         if doc["_id"].startswith("evt-"):
             return dict(doc, _id="evt")
         if doc["_id"].startswith("evg-") and doc.get("status") == "initializing":

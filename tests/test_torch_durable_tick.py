@@ -8,9 +8,10 @@ with ``use_cache=True`` (the TickCache and the resident plane), as the
 service runs them. The ``world`` fixture of ``test_torch_tick.py`` fixes
 the clock and gives both runs the same uuid4 stream and event sequence,
 so every tick writes the same documents and the WAL holds the same
-records (group frames included, ``ts`` too, the clock being fixed). The
-JAX package's tracing is off (``no_jax_tracing``): the port has none,
-and JAX's spans would ride the tick's frame as ``spans`` documents.
+records (group frames included, ``ts`` too, the clock being fixed). Both
+packages' tracing is off (``no_jax_tracing``): span ids come from each
+package's own sequence, so span documents riding the tick's frame are
+held apart, canonicalised, in ``tests/test_torch_tracing.py``.
 Compared after every tick: the documents the tick writes, the
 ``TickResult``, the persister's write shapes; after the run, the WAL's
 records and what each package recovers from the other's directory. A
@@ -112,11 +113,16 @@ SERVICE = [(NOW, None), (NOW + 15, churn(7)), (NOW + 30, None)]
 
 @pytest.fixture(autouse=True)
 def no_jax_tracing():
+    """Both packages' tracing off: the parity here is of the tick's own
+    documents and WAL records (the span trees are held with tracing on
+    in tests/test_torch_tracing.py)."""
     from evergreen_tpu.utils import tracing as j_tracing
+    from evergreen_tpu_torch.utils import tracing as t_tracing
 
-    prev = j_tracing.set_tracing_enabled(False)
+    prev = j_tracing.set_tracing_enabled(False), t_tracing.set_tracing_enabled(False)
     yield
-    j_tracing.set_tracing_enabled(prev)
+    j_tracing.set_tracing_enabled(prev[0])
+    t_tracing.set_tracing_enabled(prev[1])
 
 
 @pytest.mark.parametrize("async_persist", [False, True], ids=["sync", "async"])

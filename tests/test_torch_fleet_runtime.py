@@ -194,8 +194,10 @@ def test_worker_skips_garbage_command_lines(tmp_path):
         assert reply is not None and reply["shard"] == 0
         assert reply["launches"] == {"fused_distro_stats": 0, "segment_sum": 0,
                                      "segment_sum_by_plan": {}}
-        h.send(op="agent_sim")  # not ported: an error, not a death
-        assert h.wait_reply("agent_done", 5.0) is None
+        req = h.next_req()
+        h.send(op="no_such_op", req=req)  # an error, not a death
+        err = h.wait_reply("error", 5.0, req=req)
+        assert err is not None and "unknown op" in err["detail"]
         assert h.alive()
     finally:
         sup.stop()

@@ -326,9 +326,9 @@ def test_tick_constants_match_the_jax_package():
             t_i, j_i = getattr(t_mod, name), getattr(j_mod, name)
             assert (t_i.kind, t_i.name, t_i.labelnames) == (
                 j_i.kind, j_i.name, j_i.labelnames), name
-    # the port's options and result are the JAX ones less the fields of
-    # the part it has not ported (tracing) and of the options no caller
-    # sets, with the same defaults
+    # the port's result is the JAX one and its options are the JAX ones
+    # less the fields of the options no caller sets, with the same
+    # defaults
     for t_cls, j_cls in ((t_wrapper.TickOptions, j_wrapper.TickOptions),
                          (t_wrapper.TickResult, j_wrapper.TickResult)):
         j_fields = {f.name: f for f in dataclasses.fields(j_cls)}
@@ -343,7 +343,7 @@ def test_tick_constants_match_the_jax_package():
         "planner_version", "max_intent_hosts"}
     assert t_wrapper.TickOptions().async_persist is j_wrapper.TickOptions().async_persist is False
     assert {f.name for f in dataclasses.fields(j_wrapper.TickResult)} - {
-        f.name for f in dataclasses.fields(t_wrapper.TickResult)} == {"trace_id"}
+        f.name for f in dataclasses.fields(t_wrapper.TickResult)} == set()
     # what the port's tick fixes in place of those options
     assert j_wrapper.TickOptions().planner_version == t_globals.PlannerVersion.TPU.value
     assert j_wrapper.TickOptions().max_intent_hosts == t_globals.MAX_INTENT_HOSTS_IN_FLIGHT
@@ -717,3 +717,58 @@ def test_port_imports_nothing_of_jax():
     )
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.startswith("ok")
+
+
+def test_dispatch_and_tracing_copies_match_the_jax_package():
+    """The copies of dispatch, tracing and their config sections: the DAG
+    dispatcher's TTLs and spec, the long-poll constants and instruments,
+    the large-parser cache's TTL, ``TaskLimitsConfig``, ``ReadPathConfig``
+    and ``TracerConfig`` (defaults and validation), the spans collection,
+    the tracing counters and the ring's caps."""
+    from evergreen_tpu import settings as j_settings
+    from evergreen_tpu.dispatch import assign as j_assign
+    from evergreen_tpu.dispatch import dag_dispatcher as j_dag
+    from evergreen_tpu.dispatch import longpoll as j_longpoll
+    from evergreen_tpu.utils import tracing as j_tracing
+    from evergreen_tpu_torch import settings as t_settings
+    from evergreen_tpu_torch.dispatch import assign as t_assign
+    from evergreen_tpu_torch.dispatch import dag_dispatcher as t_dag
+    from evergreen_tpu_torch.dispatch import longpoll as t_longpoll
+    from evergreen_tpu_torch.utils import tracing as t_tracing
+
+    assert t_dag.DEFAULT_TTL_S == j_dag.DEFAULT_TTL_S == 60.0
+    assert t_dag.DAGDispatcher.GROUP_COUNT_TTL_S == j_dag.DAGDispatcher.GROUP_COUNT_TTL_S
+    assert [f.name for f in dataclasses.fields(t_dag.TaskSpec)] == [
+        f.name for f in dataclasses.fields(j_dag.TaskSpec)]
+    assert t_dag.composite_group_id("g", "v", "p", "x") == j_dag.composite_group_id(
+        "g", "v", "p", "x")
+    for name in ("DEFAULT_SHARDS", "DEFAULT_RECHECK_S"):
+        assert getattr(t_longpoll, name) == getattr(j_longpoll, name), name
+    for name in ("LONGPOLL_WAITERS", "LONGPOLL_WAKES"):
+        t_i, j_i = getattr(t_longpoll, name), getattr(j_longpoll, name)
+        assert (t_i.kind, t_i.name, t_i.labelnames) == (j_i.kind, j_i.name, j_i.labelnames)
+    assert t_assign._LIMIT_TTL_S == j_assign._LIMIT_TTL_S
+    for t_cls, j_cls in ((t_settings.TaskLimitsConfig, j_settings.TaskLimitsConfig),
+                         (t_settings.ReadPathConfig, j_settings.ReadPathConfig),
+                         (t_settings.TracerConfig, j_settings.TracerConfig)):
+        assert t_cls.section_id == j_cls.section_id
+        t_doc, j_doc = dataclasses.asdict(t_cls()), dataclasses.asdict(j_cls())
+        if t_cls is t_settings.ReadPathConfig:  # the long-poll hub's two
+            assert set(t_doc) == {"longpoll_shards", "longpoll_recheck_s"}
+            j_doc = {k: j_doc[k] for k in t_doc}
+        assert t_doc == j_doc
+        for bad in (dict(sample_ratio=2.0), dict(enabled=True),
+                    dict(longpoll_recheck_s=0.0), dict(cache_max_entries=-1)):
+            known = {f.name for f in dataclasses.fields(t_cls)}
+            if set(bad) <= known:
+                assert t_cls(**bad).validate_and_default() == j_cls(
+                    **bad).validate_and_default() != ""
+    assert t_globals.TASK_IN_PROGRESS_STATUSES == j_globals.TASK_IN_PROGRESS_STATUSES
+    assert t_tracing.SPANS_COLLECTION == j_tracing.SPANS_COLLECTION == "spans"
+    for name in ("TRACE_STORE_SHED", "TRACE_RING_DROPPED"):
+        t_i, j_i = getattr(t_tracing, name), getattr(j_tracing, name)
+        assert (t_i.kind, t_i.name, t_i.labelnames) == (j_i.kind, j_i.name, j_i.labelnames)
+    assert t_tracing.TraceContext._fields == j_tracing.TraceContext._fields
+    t_ring, j_ring = t_tracing.TraceRing(), j_tracing.TraceRing()
+    assert (t_ring.max_traces, t_ring.max_spans_per_trace) == (
+        j_ring.max_traces, j_ring.max_spans_per_trace)

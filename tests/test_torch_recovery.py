@@ -280,11 +280,16 @@ def test_the_cases_reach_every_branch(world, monkeypatch):
 
 @pytest.fixture
 def no_jax_tracing():
+    """Both packages' tracing off: the parity here is of the tick's own
+    documents and WAL records (the span trees are held with tracing on
+    in tests/test_torch_tracing.py)."""
     from evergreen_tpu.utils import tracing as j_tracing
+    from evergreen_tpu_torch.utils import tracing as t_tracing
 
-    prev = j_tracing.set_tracing_enabled(False)
+    prev = j_tracing.set_tracing_enabled(False), t_tracing.set_tracing_enabled(False)
     yield
-    j_tracing.set_tracing_enabled(prev)
+    j_tracing.set_tracing_enabled(prev[0])
+    t_tracing.set_tracing_enabled(prev[1])
 
 
 def test_crash_copy_recovers_and_ticks_as_jax(tmp_path, world, no_jax_tracing):
