@@ -192,10 +192,39 @@ raises and exits non-zero):
    owner per document, every lease released; prints the start, each
    recovery, each round and shard tick, the leader's serves, the
    takeover and the stop in ms;
-12. a JSON line of the kernels (launches: phases 7–11, by path, phase
-   8's loop as the path "loop"; the other phases check theirs on lines
-   of their own), the card's line,
-   and the last line ``{"ok": true, "device": {...}}``.
+12. the job plane (``cron_phase``): config 3 with phase 6's capacity
+   settings seeded once into a durable directory (every running host
+   with a mock instance) and copied; ``Environment.build(data_dir=...,
+   workers=1)`` on (a) the card and (b) the CPU (lease, replay,
+   migrations, the recovery pass; on the card the backend probe and the
+   kernels' build before the job plane starts), their migration results
+   and recovery reports equal; three cron rounds
+   (``cron_runner.tick(force=True)``, ``queue.wait_idle``), an agent
+   pass after round 2, each environment on its own uuid4 stream, event
+   sequence, mock cloud table and log sink, on one pinned clock, the
+   overload ladder's disk- and clock-fed rungs off (``CRON_OVERLOAD``).
+   After each round every document of (a) equals (b)'s
+   (``same_cron_docs``: the span masks, the system sample's resource
+   readings, the log records' wall-clock readings), no job failed,
+   ``host-create`` spawned what ``host_throttle`` allows (32) and
+   provisioned them, the same hosts in (a) and (b), the tick job planned
+   by the card with no degradation or fallback counter moving, launches
+   exact. Then a round of (a) with the default pool
+   (``AmboyConfig.pool_size_local``, 8 workers) and the default ladder:
+   each admitted job ran once, the shed ones are recorded and counted,
+   no two jobs holding a scope overlapped, launches exact; it prints the
+   ladder's levels and each populator's deferrals. Then a failed
+   launch inside the tick job: ``wait_idle`` raises the ``KernelError``,
+   the runner's next tick raises it again and enqueues nothing, the job
+   type is not counted toward quarantine. Both environments close and
+   release their leases. Prints the build's split (lease, open and
+   replay, migrations, recovery, kernels), each round's wall and each
+   job type's run ms (its ``job.run`` spans), the tick job's wall beside
+   phase 10's quiet durable tick, and ``host-create`` for 32 hosts;
+13. a JSON line of the kernels (launches: phases 7–12, by path, phase
+   8's loop as the path "loop", phase 12's card environment as "cron";
+   the other phases check theirs on lines of their own), the card's
+   line, and the last line ``{"ok": true, "device": {...}}``.
 
 Before phase 1 the backend probe (``utils/torchenv.py``) must find the
 card from a fresh interpreter.
@@ -2577,6 +2606,8 @@ DURABLE_STORES = (("a", True, True), ("b", False, True), ("c", True, False))
 #: the checkout, gitignored, removed at the end of the phase)
 LEASE_TTL_S = 2.0
 DATA_ROOT = os.path.join(HERE, "_smoke_data")
+#: readings one phase keeps for a later one to print beside its own
+READINGS = {}
 #: the fleet's rounds, shard 0 held YELLOW in the second (the round
 #: between the churn and the YELLOW one was cut when phase 8's loop
 #: needed the time: phase 9 runs the in-process plane's rounds, and phase
@@ -2590,12 +2621,6 @@ FLEET_YELLOW = 1
 #: WAL groups beside the stacked barrier. The last round is the reopened
 #: fleet's first, local (its dims floor cold)
 FLEET_MODES = ("local", "stacked or grown", "stacked", "local")
-
-
-def service_opts(wrapper):
-    """``units/crons.py``'s tick options, its sharded round's too."""
-    return wrapper.TickOptions(use_cache=True, async_persist=True,
-                               solve_deadline_s=10.0, tick_budget_s=12.0)
 
 
 def wal_path(store) -> str:
@@ -2690,9 +2715,10 @@ def wait_flushed(store) -> float:
 
 
 def durable_phase(torch, np, problem, card="cuda", root=DATA_ROOT) -> dict:
-    """Phase 10: the service's tick (``service_opts``) on durable stores —
-    the WAL group commit on the flusher, replay after a crash, a torn
-    frame, the epoch fence — and the durable sharded fleet. Returns the
+    """Phase 10: the service's tick (``units/crons.py::service_tick_options``)
+    on durable stores — the WAL group commit on the flusher, replay after
+    a crash, a torn frame, the epoch fence — and the durable sharded
+    fleet. Returns the
     card's launches by store. ``card="cpu"`` rehearses it on the CPU."""
     import gc
     import itertools
@@ -2709,10 +2735,11 @@ def durable_phase(torch, np, problem, card="cuda", root=DATA_ROOT) -> dict:
     from evergreen_tpu_torch.storage.durable import DurableStore
     from evergreen_tpu_torch.storage.lease import FileLease
     from evergreen_tpu_torch.storage.store import Store
+    from evergreen_tpu_torch.units.crons import service_tick_options
     from evergreen_tpu_torch.utils.benchgen import NOW
 
     on_card = torch.device(card).type == "cuda"
-    opts = service_opts(wrapper)
+    opts = service_tick_options()
     phases = TICK_PHASES + ("wal_commit",)
     iters = CapacityConfig().iterations
     solve_launches = (expected_launches([iters]) if on_card
@@ -2921,6 +2948,8 @@ def durable_phase(torch, np, problem, card="cuda", root=DATA_ROOT) -> dict:
                           f"tick {label}: TickResult.{field} of ({key}) differs from (a)'s")
             n_docs, _ = same_docs(stores, f"tick {label}")
             frames = wal_side(stores, step, starts, label, [("a", "b")])
+            if before is None and k:
+                READINGS["durable quiet tick ms"] = r.total_ms
             log(f"durable tick {label}: planner tpu in all three; {sum(r.queues.values())} "
                 f"queue items in {len(r.queues)} queues, {len(r.intent_hosts)} intents; "
                 f"{n_docs} documents equal in (a), (b), (c); one group frame a durable "
@@ -3089,11 +3118,12 @@ def fleet_phase(torch, np, problem, keep, card, data_dir, launches_by) -> None:
     )
     from evergreen_tpu_torch.settings import CapacityConfig
     from evergreen_tpu_torch.storage.store import Store
+    from evergreen_tpu_torch.units.crons import service_tick_options
     from evergreen_tpu_torch.utils import overload
     from evergreen_tpu_torch.utils.benchgen import NOW
 
     on_card = torch.device(card).type == "cuda"
-    opts = service_opts(wrapper)
+    opts = service_tick_options()
     iters = CapacityConfig().iterations
     kw = dict(tick_opts=wrapper.TickOptions(use_cache=True), rebalance_enabled=True)
     t0 = time.perf_counter()
@@ -3714,6 +3744,466 @@ def process_fleet_phase(torch, np, problem, card="cuda", root=DATA_ROOT) -> dict
     return fleet
 
 
+
+#: phase 12: the job plane. Cron rounds of (a) the card's environment and
+#: (b) the CPU's, each on a copy of one seeded durable directory; the
+#: agent pass follows round ``CRON_AGENT_AFTER`` (1-based)
+CRON_ROUNDS = 3
+CRON_AGENT_AFTER = 2
+CRON_ENVS = (("a", "cuda"), ("b", "cpu"))
+#: what two environments cannot agree on in a document beside the span
+#: masks: the process's resource readings of a system-stats sample, the
+#: wall times a tick's runtime-stats log record carries, and the gauges
+#: an overload-level record carries (the WAL flusher's backlog and the
+#: commit latency's moving average, both read off the wall clock)
+CRON_MASKS = {"system_stats": ("max_rss_kb", "cpu_user_s"),
+              "log_lines": SPAN_TIME_ATTRS + ("gauges",)}
+
+
+#: the overload ladder's rungs for the signals read off the wall clock and
+#: the disk (the WAL flusher's backlog, the commit latency, the tick's
+#: lag) set to 0, which disables them, for the compared rounds: at
+#: config 3 a round's writers queue enough frames for the flusher's
+#: backlog to reach BLACK in one environment and not the other, and
+#: BLACK sheds and defers jobs. The job queue's depth, deterministic
+#: under one worker, still drives it; the phase prints each round's peak
+#: backlog. The pool's round runs the default ladder
+CRON_OVERLOAD = dict(wal_backlog_levels=[0, 0, 0], store_latency_ms_levels=[0, 0, 0],
+                     tick_lag_levels_s=[0, 0, 0])
+#: the populators that defer their batch on the ladder (``_defer_for_overload``)
+CRON_DEFERRERS = ("host-monitoring", "host-reconcile", "stats")
+
+
+def cron_docs(store, name) -> list:
+    """The documents of collection ``name`` of ``store`` in store order,
+    ``CRON_MASKS`` masked (spans as ``span_json`` masks them)."""
+    if name == "spans":
+        return [canon_span(d) for d in store.collection(name).find()
+                if d["name"] != "arena_lease"]
+    drop = CRON_MASKS.get(name, ())
+    found = store.collection(name).find()
+    return [{k: v for k, v in d.items() if k not in drop} for d in found] if drop else found
+
+
+def same_cron_docs(a, b, label) -> int:
+    """Every collection of stores ``a`` and ``b`` equal (``cron_docs``);
+    the message names the first document that differs. Returns the
+    count of documents."""
+    names = sorted(set(doc_names(a)) | set(doc_names(b)) | {"spans"})
+    n = 0
+    for name in names:
+        got, want = cron_docs(a, name), cron_docs(b, name)
+        if got != want:
+            k = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y),
+                     min(len(got), len(want)))
+            x = got[k] if k < len(got) else None
+            y = want[k] if k < len(want) else None
+            keys = sorted(f for f in set(x or {}) | set(y or {})
+                          if (x or {}).get(f) != (y or {}).get(f))
+            check(False, f"{label}: {name} differ ({len(got)} and {len(want)} documents); "
+                  f"the first at {k}, {(x or y or {}).get('_id')!r}, in {keys}: "
+                  f"{json.dumps({f: (x or {}).get(f) for f in keys}, default=str)[:400]} "
+                  f"against {json.dumps({f: (y or {}).get(f) for f in keys}, default=str)[:400]}")
+        n += len(got)
+    return n
+
+
+def seed_cron_dir(problem, data_dir) -> list:
+    """Config 3 with phase 6's capacity settings in a durable directory
+    at epoch 0 (no lease), in one group frame, then checkpointed; every
+    running host has a mock instance (``external_id``) in the cloud table
+    the phase installs, and the overload ladder reads only the signals
+    two environments can agree on (``CRON_OVERLOAD``). Returns those
+    hosts' ids."""
+    from evergreen_tpu_torch.settings import OverloadConfig
+    from evergreen_tpu_torch.storage.durable import DurableStore
+    from evergreen_tpu_torch.storage.store import Store
+
+    src = Store()
+    seed_tick_store(src, problem)
+    OverloadConfig(**CRON_OVERLOAD).set(src)
+    hosts = src.collection("hosts")
+    up = [d["_id"] for d in hosts.find() if d["status"] == "running"]
+    for hid in up:
+        hosts.update(hid, {"external_id": f"mock-{hid}"})
+    dst = DurableStore(data_dir)
+    dst.begin_tick()
+    for n in sorted(src._collections):
+        dst.collection(n).insert_many(src.collection(n).find())
+    dst.end_tick()
+    dst.close()
+    return up
+
+
+def cron_phase(torch, np, problem, card="cuda", root=DATA_ROOT) -> dict:
+    """Phase 12: the service's job plane (``env.py::Environment.build``,
+    ``JobQueue``, ``CronRunner`` and the populators of ``units/crons.py``)
+    on a durable directory. Returns the card environment's launches of
+    its pinned rounds and its pool round. ``card="cpu"`` rehearses it on
+    the CPU. The pool's and the fault's rounds run on a clock that moves
+    on from the pinned rounds' (a jump to the wall clock would read as
+    tick lag to the overload ladder)."""
+    import contextlib
+    import io
+    import itertools
+    import random
+    import shutil
+    import uuid
+
+    from evergreen_tpu_torch.cloud.mock import MockCloudManager
+    from evergreen_tpu_torch.env import Environment
+    from evergreen_tpu_torch.models import event as event_mod
+    from evergreen_tpu_torch.ops import distro_stats
+    from evergreen_tpu_torch.ops._build import KernelError
+    from evergreen_tpu_torch.ops.distro_stats import fused_distro_stats
+    from evergreen_tpu_torch.ops.segment import segment_sum
+    from evergreen_tpu_torch.queue import jobs as jobs_mod
+    from evergreen_tpu_torch.scheduler import capacity_plane, resident, wrapper
+    from evergreen_tpu_torch.settings import (
+        AmboyConfig,
+        CapacityConfig,
+        HostInitConfig,
+        OverloadConfig,
+    )
+    from evergreen_tpu_torch.storage.lease import FileLease
+    from evergreen_tpu_torch.units import crons
+    from evergreen_tpu_torch.utils import log as log_mod
+    from evergreen_tpu_torch.utils import overload, tracing
+    from evergreen_tpu_torch.utils.benchgen import NOW
+
+    on_card = torch.device(card).type == "cuda"
+    devices = {k: (card if d == "cuda" else "cpu") for k, d in CRON_ENVS}
+    iters = CapacityConfig().iterations
+    solve_launches = (expected_launches([iters]) if on_card
+                      else {"fused_distro_stats": 0, "segment_sum": 0})
+    no_launches = {"fused_distro_stats": 0, "segment_sum": 0}
+    throttle = HostInitConfig().host_throttle
+    shutil.rmtree(root, ignore_errors=True)
+    seed_dir = os.path.join(root, "cron-seed")
+    t0 = time.perf_counter()
+    up = seed_cron_dir(problem, seed_dir)
+    seed_ms = (time.perf_counter() - t0) * 1e3
+    dirs = {}
+    for key, _ in CRON_ENVS:
+        dirs[key] = os.path.join(root, f"cron-{key}")
+        shutil.copytree(seed_dir, dirs[key])
+    log(f"cron: config 3 (seed {SEED}) with phase 6's capacity settings seeded into a "
+        f"durable directory in {seed_ms:.0f} ms ({len(up)} running hosts with a mock "
+        f"instance), copied for (a) the card's environment and (b) the CPU's")
+
+    # the process-wide state each environment keeps apart: its uuid4
+    # stream, event sequence, mock cloud table and log sink; the clock is
+    # pinned around every step of either
+    cloud0 = {f"mock-{hid}": "running" for hid in up}
+    state = {k: dict(rng=random.Random(12_000), seq=itertools.count(),
+                     cloud=dict(cloud0), sinks=[]) for k, _ in CRON_ENVS}
+    real_uuid4, real_time = uuid.uuid4, time.time
+    real_cloud = MockCloudManager.instances
+
+    def enter(key, now):
+        """Install ``key``'s process-wide state; the clock reads ``now``,
+        or runs on from it when ``moving``."""
+        st = state[key]
+        uuid.uuid4 = lambda: uuid.UUID(int=st["rng"].getrandbits(128))
+        if isinstance(now, tuple):
+            offset = real_time() - now[1]
+            time.time = lambda: real_time() - offset
+        else:
+            time.time = lambda: now
+        event_mod._SEQ = st["seq"]
+        MockCloudManager.instances = st["cloud"]
+        log_mod.reset_sinks(*st["sinks"])
+
+    def leave():
+        uuid.uuid4, time.time = real_uuid4, real_time
+
+    envs, boots = {}, {}
+    try:
+        for key, _ in CRON_ENVS:
+            enter(key, NOW)
+            lines = io.StringIO()
+            try:
+                t0 = time.perf_counter()
+                # the JSON-line sink the build wires writes to stderr: the
+                # recovery pass's record names every claim it released
+                with contextlib.redirect_stderr(lines):
+                    envs[key] = Environment.build(data_dir=dirs[key], workers=1,
+                                                  device=devices[key])
+                boots[key] = (time.perf_counter() - t0) * 1e3
+            finally:
+                leave()
+            # the build wired the JSON-line sink and the store's ring; the
+            # rounds keep the ring alone (two environments share this
+            # process, where a service has one)
+            state[key]["sinks"] = [s for s in log_mod._sinks
+                                   if isinstance(s, log_mod.StoreSink)]
+            log_mod.reset_sinks()
+            e = envs[key]
+            log(f"cron: Environment.build (({key}), {devices[key]}) {boots[key]:.1f} ms: "
+                + ", ".join(f"{p} {ms:.1f}" for p, ms in e.boot_ms.items())
+                + f" ms; {len(lines.getvalue().splitlines())} JSON log lines; lease "
+                f"epoch {e.store.epoch}; migrations "
+                f"{[r for _, r in e.migrations]}; recovery "
+                f"{recovery_counts(e.recovery_report)}")
+        a, b = envs["a"], envs["b"]
+        check(a.migrations == b.migrations, "the migration results differ")
+        check(a.recovery_report.to_doc() == b.recovery_report.to_doc(),
+              "the recovery reports differ")
+        check(a.queue._workers == 1 and b.queue._workers == 1, "not one worker")
+        same_cron_docs(a.store, b.store, "after the build")
+
+        fused = (fused_distro_stats, segment_sum)
+        launches = {"pinned": {}, "pool": {}}
+        seen_runs = {k: set() for k in envs}
+
+        def job_runs(key):
+            """This round's ``job.run`` ring spans of ``key``: type -> ms."""
+            out = {}
+            for _, spans in tracing.trace_ring_for(envs[key].store).traces():
+                for s in spans:
+                    if s.get("name") == "job.run" and s["_id"] not in seen_runs[key]:
+                        seen_runs[key].add(s["_id"])
+                        jt = s["attributes"]["job_type"]
+                        out[jt] = out.get(jt, 0.0) + s["duration_ms"]
+            return out
+
+        def counters():
+            return (wrapper.TICK_DEGRADED.total(),
+                    capacity_plane.CAPACITY_FALLBACKS.total())
+
+        def round_checks(key, label, events0, n_jobs):
+            """A round's own checks on ``key``: no failed job, every job
+            completed, each tick span planned by the card (or the CPU) and
+            not degraded, and ``host-create`` spawning what the throttle
+            allows. Returns (spawned, provisioned)."""
+            store = envs[key].store
+            new = store.collection("events").find()[events0:]
+            check(not any(e["event_type"] == "JOB_FAILED" for e in new),
+                  f"round {label} ({key}): a job failed")
+            recs = store.collection("jobs").find()
+            check(all(r["status"] == "completed" for r in recs),
+                  f"round {label} ({key}): job statuses "
+                  f"{sorted({r['status'] for r in recs})}")
+            check(len(recs) == n_jobs, f"round {label} ({key}): {len(recs)} job records, "
+                  f"expected {n_jobs}")
+            last = [s for s in store.collection("spans").find()
+                    if s["name"] == "tick"][-1]["attributes"]
+            check((last["planner_used"], last["degraded"]) == ("tpu", ""),
+                  f"round {label} ({key}): the tick job's planner "
+                  f"{last['planner_used']!r}, degraded {last['degraded']!r}")
+            spawned = sorted(e["resource_id"] for e in new if e["event_type"] == "HOST_STARTED")
+            provisioned = sorted(e["resource_id"] for e in new
+                                 if e["event_type"] == "HOST_PROVISIONED")
+            left = store.collection("hosts").count(lambda d: d["status"] == "initializing")
+            check(len(spawned) == min(throttle, len(spawned) + left),
+                  f"round {label} ({key}): host-create spawned {len(spawned)} with "
+                  f"{left} intents left, throttle {throttle}")
+            return spawned, provisioned
+
+        peaks = {}
+        for key, env in envs.items():
+            real_backlog = env.store.flush_backlog
+
+            def backlog(real=real_backlog, key=key):
+                n = real()
+                peaks[key] = max(peaks.get(key, 0), n)
+                return n
+
+            env.store.flush_backlog = backlog
+        n_jobs = {k: 0 for k in envs}
+        for r in range(1, CRON_ROUNDS + 1):
+            peaks.clear()
+            label, now = str(r), NOW + (r - 1) * TICK_STEP_S
+            walls, runs, made = {}, {}, {}
+            for key, env in envs.items():
+                events0 = len(env.store.collection("events"))
+                deg0 = counters()
+                enter(key, now)
+                reset_launches(*fused)
+                t0 = time.perf_counter()
+                try:
+                    n_jobs[key] += env.cron_runner.tick(force=True)
+                    check(env.queue.wait_idle(timeout_s=300.0), f"round {label} ({key}) "
+                          f"did not finish")
+                finally:
+                    leave()
+                walls[key] = (time.perf_counter() - t0) * 1e3
+                got = read_launches(*fused)
+                want = solve_launches if devices[key] != "cpu" else no_launches
+                check(got == want, f"round {label} ({key}): launches {got}, expected "
+                      f"{want}")
+                if devices[key] != "cpu":
+                    add_launches(launches["pinned"], got)
+                check(counters() == deg0, f"round {label} ({key}): a degradation or "
+                      f"fallback counter moved")
+                plane = resident.peek_resident_plane(env.store)
+                check(plane is not None and plane.stats()["fallbacks"] == 0,
+                      f"round {label} ({key}): resident plane fallback")
+                made[key] = round_checks(key, label, events0, n_jobs[key])
+                runs[key] = job_runs(key)
+            check(made["a"] == made["b"], f"round {label}: the hosts spawned and "
+                  f"provisioned differ")
+            n_docs = same_cron_docs(a.store, b.store, f"round {label}")
+            log(f"cron round {label}: {n_jobs['a']} jobs so far, all completed, none "
+                f"failed; host-create spawned {len(made['a'][0])} (throttle {throttle}) "
+                f"and provisioned {len(made['a'][1])} mock hosts, the same in (a) and (b); "
+                f"tick planned by the card in (a), no degradation; {n_docs} documents "
+                f"and the span documents equal; launches exact "
+                f"({solve_launches['fused_distro_stats']} + "
+                f"{solve_launches['segment_sum']} in (a))")
+            log(f"cron round {label} wall ms (a) {walls['a']:.1f}, (b) {walls['b']:.1f}; "
+                f"the WAL flusher's peak backlog as the ladder read it (a) "
+                f"{peaks.get('a', 0)}, (b) {peaks.get('b', 0)} frames; "
+                f"job run ms (a) / (b): " + "; ".join(
+                    f"{jt} {runs['a'][jt]:.1f} / {runs['b'].get(jt, 0.0):.1f}"
+                    for jt in sorted(runs["a"])))
+            if r == 1:
+                READINGS["cron first tick ms"] = runs["a"]["scheduler-tick"]
+            READINGS["cron host-create ms"] = runs["a"]["host-create"]
+            if r == CRON_AGENT_AFTER:
+                pairs = {}
+                for key, env in envs.items():
+                    enter(key, now)
+                    try:
+                        _, pairs[key], pull_ms, finish_ms = agent_pass(env.store, now)
+                    finally:
+                        leave()
+                check(pairs["a"] == pairs["b"], "agent pass: the pairs differ")
+                same_cron_docs(a.store, b.store, "agent pass")
+                log(f"cron agent pass after round {r}: {len(pairs['a'])} pulls, "
+                    f"{sum(1 for _, t in pairs['a'] if t)} tasks handed out, equal in (a) "
+                    f"and (b)")
+        log(f"cron: the tick job's wall on (a) in round 1 {READINGS['cron first tick ms']:.1f} "
+            f"ms, in round {CRON_ROUNDS} {runs['a']['scheduler-tick']:.1f} ms, against "
+            f"phase 10's quiet durable card tick "
+            f"{READINGS.get('durable quiet tick ms', float('nan')):.1f} ms; host-create "
+            f"for {len(made['a'][0])} hosts {READINGS['cron host-create ms']:.1f} ms")
+
+        # ---- (a) with the default pool and ladder: invariants ------------- #
+        # the deployed ladder is back: its config re-read now, not at the
+        # monitor's next refresh
+        OverloadConfig().set(a.store)
+        monitor = overload.monitor_for(a.store)
+        monitor._cfg = None
+        level0 = overload.level_name(monitor.level())
+        deferred0 = {p: crons.CRON_DEFERRED.value(populator=p) for p in CRON_DEFERRERS}
+        shed0 = jobs_mod.JOBS_SHED.total()
+        events0 = len(a.store.collection("events"))
+        pool = AmboyConfig.get(a.store).pool_size_local
+        a.queue.close()
+        a.queue = jobs_mod.JobQueue(a.store, workers=pool)
+        a.cron_runner.queue = a.queue
+        now = NOW + CRON_ROUNDS * TICK_STEP_S
+        peaks.clear()
+        enter("a", ("moving", now))
+        reset_launches(*fused)
+        deg0 = counters()
+        recs0 = {d["_id"] for d in a.store.collection("jobs").find()}
+        t0 = time.perf_counter()
+        try:
+            n = a.cron_runner.tick(force=True)
+            check(a.queue.wait_idle(timeout_s=300.0), "the pool round did not finish")
+        finally:
+            leave()
+        pool_ms = (time.perf_counter() - t0) * 1e3
+        got = read_launches(*fused)
+        check(got == solve_launches, f"pool round: launches {got}, expected "
+              f"{solve_launches}")
+        add_launches(launches["pool"], got)
+        check(counters() == deg0, "pool round: a degradation or fallback counter moved")
+        recs = [d for d in a.store.collection("jobs").find() if d["_id"] not in recs0]
+        done = [d for d in recs if d["status"] == "completed"]
+        shed = [d["type"] for d in recs if d["status"] == "shed"]
+        check(len(done) == n and len(done) + len(shed) == len(recs),
+              f"pool round: {len(recs)} records of {n} jobs admitted, statuses "
+              f"{sorted({d['status'] for d in recs})}")
+        check(len(shed) == jobs_mod.JOBS_SHED.total() - shed0,
+              "pool round: the shed records and the shed counter differ")
+        by_scope = {}
+        for d in done:
+            for s in d["scopes"]:
+                by_scope.setdefault(s, []).append((d["started_at"], d["finished_at"]))
+        for s, spans in by_scope.items():
+            spans.sort()
+            check(all(x[1] <= y[0] for x, y in zip(spans, spans[1:])),
+                  f"pool round: two jobs holding scope {s!r} overlapped")
+        runs = job_runs("a")
+        check(sorted(runs) == sorted(d["type"] for d in done),
+              "pool round: a job ran more or less than once")
+        levels = [level0] + [e["resource_id"] for e in
+                             a.store.collection("events").find()[events0:]
+                             if e["event_type"] == "OVERLOAD_LEVEL"]
+        deferred = {p: int(crons.CRON_DEFERRED.value(populator=p) - deferred0[p])
+                    for p in CRON_DEFERRERS}
+        log(f"cron pool round on (a): {pool} workers (AmboyConfig.pool_size_local) and "
+            f"the default ladder; {n} jobs admitted, each run once and completed, "
+            f"{len(shed)} shed {sorted(shed)}, no scope overlapped, launches exact, no "
+            f"degradation; the ladder {' -> '.join(levels)} (the WAL flusher's peak "
+            f"backlog {peaks.get('a', 0)} frames), deferred by populator {deferred}; "
+            f"wall {pool_ms:.1f} ms; scheduler-tick {runs['scheduler-tick']:.1f} ms, "
+            f"host-create " + (f"{runs['host-create']:.1f} ms" if "host-create" in runs
+                               else "not run"))
+
+        # ---- a failed launch inside the tick job stops the plane ----------- #
+        real_launch = distro_stats._launch_fn
+        distro_stats._launch_fn = lambda: (lambda *args: 719)
+        raised = again = None
+        recs0 = len(a.store.collection("jobs"))
+        shed0 = jobs_mod.JOBS_SHED.total()
+        enter("a", ("moving", now + TICK_STEP_S))
+        try:
+            m = a.cron_runner.tick(force=True)
+            try:
+                a.queue.wait_idle(timeout_s=300.0)
+            except KernelError as exc:
+                raised = exc
+            try:
+                a.cron_runner.tick(force=True)
+            except KernelError as exc:
+                again = exc
+        finally:
+            leave()
+            distro_stats._launch_fn = real_launch
+        if on_card:
+            failed = [d for d in a.store.collection("jobs").find()
+                      if d["status"] == "failed"]
+            check(raised is not None and again is raised,
+                  f"a failed launch in the tick job: wait_idle raised {raised!r}, the "
+                  f"runner's next tick {again!r}")
+            check([d["type"] for d in failed] == ["scheduler-tick"],
+                  f"failed jobs {[d['type'] for d in failed]}")
+            check(not a.queue._quarantined_until and "scheduler-tick" not in a.queue._failures,
+                  "the tick's job type was counted toward quarantine")
+            check(len(a.store.collection("jobs"))
+                  == recs0 + m + jobs_mod.JOBS_SHED.total() - shed0,
+                  "the stopped runner enqueued")
+            check(not a.queue.put(jobs_mod.FnJob("probe", lambda s: None)),
+                  "the stopped queue admitted a job")
+        log(f"cron fault: a failed launch inside the tick job on (a) raised {raised!r} out "
+            f"of wait_idle and again out of the runner's next tick, which enqueued "
+            f"nothing; the job recorded failed, its type not counted toward quarantine")
+    finally:
+        leave()
+        MockCloudManager.instances = real_cloud
+        for key, env in envs.items():
+            env.close()
+        log_mod.reset_sinks()
+    for key in envs:
+        probe = FileLease(os.path.join(dirs[key], "writer.lease"))
+        check(probe.try_acquire(), f"({key})'s writer lease was not released")
+        probe.release()
+    shutil.rmtree(root, ignore_errors=True)
+    log("cron: both environments closed, their leases released")
+    return launches
+
+
+def recovery_counts(report) -> dict:
+    """A recovery report's counts, for the log."""
+    return {k: len(v) if isinstance(v, list) else v
+            for k, v in report.to_doc().items()}
+
+
+
 def main() -> int:
     profile_dir = None
     sweep_mode = sys.argv[1:] == ["--sweep"]
@@ -4086,16 +4576,24 @@ def main() -> int:
     proc = process_fleet_phase(torch, np, problems["seed0"])
     phase_done("phase 11")
 
-    # ---- 12. result -------------------------------------------------------- #
+    # ---- 12. the job plane -------------------------------------------------- #
+    log(f"job plane on {smi}")
+    cron = {}
+    for part in cron_phase(torch, np, problems["seed0"]).values():
+        add_launches(cron, part)
+    phase_done("phase 12")
+
+    # ---- 13. result -------------------------------------------------------- #
     # launches: phase 7's ticks (card first), phase 8's card stores, phase
     # 9's card planes, phase 10's card stores and fleets ("durable"; its
     # in-memory control store (c) apart, as "durable control") and phase
-    # 11's process fleet ("fleet": the leader's and every worker's). The
-    # warm card store and plane (b) of phases 8-9, and phase 10's card
-    # stores, pack through their resident planes: their fused_distro_stats
-    # ran on the slab layout and are the slab row's alone; phase 10's
-    # fleet stacks, and phase 11's workers build at the leader's floor
-    # (cold builds at the common dims)
+    # 11's process fleet ("fleet": the leader's and every worker's) and
+    # phase 12's card environment ("cron"). The warm card store and plane
+    # (b) of phases 8-9, and the durable card stores of phases 10 and 12,
+    # pack through their resident planes: their fused_distro_stats ran on
+    # the slab layout and are the slab row's alone; phase 10's fleet
+    # stacks, and phase 11's workers build at the leader's floor (cold
+    # builds at the common dims)
     slab_stores = ("a", "replayed", "thief")
     paths = {"tick": tick_launches, **service["launches"]}
     for r in rows:
@@ -4114,6 +4612,7 @@ def main() -> int:
         r["launches_by_path"]["loop"] = sum(
             c.get(r["name"], 0) for p, c in service["loop"].items()
             if not (slab_only and p == "card warm"))
+        r["launches_by_path"]["cron"] = 0 if slab_only else cron.get(r["name"], 0)
         r["launches"] = sum(r["launches_by_path"].values())
     slab = service["slab_row"]
     slab["floor_ms"] = floor_ms
@@ -4123,7 +4622,8 @@ def main() -> int:
         "durable": sum(durable[k].get("fused_distro_stats", 0) for k in slab_stores),
         "durable control": durable["c"].get("fused_distro_stats", 0),
         "fleet": 0,
-        "loop": service["loop"]["card warm"].get("fused_distro_stats", 0)}
+        "loop": service["loop"]["card warm"].get("fused_distro_stats", 0),
+        "cron": cron.get("fused_distro_stats", 0)}
     slab["launches"] = sum(slab["launches_by_path"].values())
     rows.append(slab)
     # the byte and chain bounds behind bound_ms are in the log lines above

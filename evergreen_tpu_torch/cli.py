@@ -16,8 +16,10 @@ interpreter, so a card that hangs or is missing fails the command at
 once. The JAX package's ``service`` also serves the REST API (and, with
 ``--shards``, its admin fleet surface); the port has no REST API yet, so
 ``service`` waits for the signal where JAX serves requests. The classic
-single-store service (``service`` without ``--shards``) is not ported
-and fails with a message that says so.
+single-store service (``service`` without ``--shards``) waits for the
+REST surface and fails with a message that says so; its job plane
+(``env.py::Environment.build``: the job queue and the cron populators)
+is ported.
 """
 from __future__ import annotations
 
@@ -58,8 +60,10 @@ def cmd_service(args) -> int:
     from .utils.retry import RetryPolicy
 
     if not args.shards:
-        print("the single-store service is not ported to evergreen_tpu_torch; "
-              "run the process-per-shard fleet with --shards N --data-dir D",
+        print("the single-store service waits for the REST surface, which is "
+              "not ported to evergreen_tpu_torch; its job plane is "
+              "(evergreen_tpu_torch.env.Environment.build). Run the "
+              "process-per-shard fleet with --shards N --data-dir D",
               file=sys.stderr)
         return 2
     if not args.data_dir:

@@ -1,18 +1,15 @@
 """Provider-agnostic cloud manager interface and the pool price table.
 
 A copy of ``evergreen_tpu/cloud/manager.py``: ``CloudHostStatus``, the
-``CloudManager`` surface the recovery pass reads (the instance status
-probe; terminate and stop), ``register_manager`` / ``get_manager``
-(reference cloud/cloud.go:147-177 GetManager factory) and
-``default_pool_prices``. The spawn, start and DNS calls come with the
-provisioning plane, and so do the real providers (docker, ec2, static):
-``cloud/mock.py`` is the one ported provider, so ``get_manager`` of any
-other provider raises ``KeyError``.
+``CloudManager`` surface the provisioning and monitoring plane consumes
+(spawn, status, terminate, stop/start, DNS), ``register_manager`` /
+``get_manager`` (reference cloud/cloud.go:147-177 GetManager factory)
+and ``default_pool_prices``.
 """
 from __future__ import annotations
 
 import abc
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 from ..models.host import Host
 from ..storage.store import Store
@@ -35,9 +32,14 @@ class CloudManager(abc.ABC):
     provider: str = ""
 
     @abc.abstractmethod
+    def spawn_host(self, store: Store, host: Host) -> None:
+        """Materialize an intent host with the provider (async in real
+        providers: the instance comes up later)."""
+
+    @abc.abstractmethod
     def get_instance_status(self, store: Store, host: Host) -> str:
         """The provider's truth about the instance — the reconciliation
-        source for the recovery pass (and host monitoring)."""
+        source for host monitoring (units/host_monitoring_check.go:31)."""
 
     @abc.abstractmethod
     def terminate_instance(self, store: Store, host: Host, reason: str) -> None:
@@ -45,6 +47,12 @@ class CloudManager(abc.ABC):
 
     def stop_instance(self, store: Store, host: Host) -> None:
         raise NotImplementedError(f"{self.provider} cannot stop instances")
+
+    def start_instance(self, store: Store, host: Host) -> None:
+        raise NotImplementedError(f"{self.provider} cannot start instances")
+
+    def get_dns_name(self, store: Store, host: Host) -> str:
+        return f"{host.id}.{self.provider}.internal"
 
 
 _REGISTRY: Dict[str, Callable[[], CloudManager]] = {}

@@ -94,6 +94,13 @@ class BootstrapSettings:
     communication: str = "legacy-ssh"
     env: dict = dataclasses.field(default_factory=dict)
 
+    def is_legacy(self) -> bool:
+        """Reference distro.LegacyBootstrap()."""
+        return self.method in ("", self.METHOD_LEGACY_SSH)
+
+    def self_provisions(self) -> bool:
+        return self.method in (self.METHOD_USER_DATA, self.METHOD_PRECONFIGURED)
+
 
 @dataclasses.dataclass
 class DispatcherSettings:

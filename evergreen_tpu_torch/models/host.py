@@ -5,7 +5,8 @@ and the store functions the tick's gather and intent budget call, with
 ``clear_running_task`` (task end: ``models/lifecycle.py::mark_end``),
 the recovery pass's claim release, and the dispatcher's compare-and-set
 ``assign_running_task`` with the ``can_run_tasks`` predicate
-(``dispatch/assign.py``).
+(``dispatch/assign.py``), and the reprovision transitions the
+provisioning plane (``cloud/provisioning.py``) marks and runs.
 """
 from __future__ import annotations
 
@@ -21,6 +22,14 @@ from ..globals import (
 from ..storage.store import Collection, Store
 
 COLLECTION = "hosts"
+
+# Reprovision transitions (reference model/host/host.go:196-209
+# ReprovisionType). "restart-agent" is the analog of RestartJasper: same
+# bootstrap method, but the host's agent runtime must be bounced.
+REPROVISION_NONE = ""
+REPROVISION_TO_NEW = "convert-to-new"
+REPROVISION_TO_LEGACY = "convert-to-legacy"
+REPROVISION_RESTART_AGENT = "restart-agent"
 
 @dataclasses.dataclass(slots=True)
 class Host:
@@ -61,8 +70,8 @@ class Host:
     #: back mid-task — is expected weather, counted by
     #: ``cloud_spot_reclaimed_total`` when the monitor discovers it
     spot: bool = False
-    #: pending bootstrap transition (the JAX package's REPROVISION_*
-    #: values, consumed by its cloud/provisioning.reprovision_hosts)
+    #: pending bootstrap transition (REPROVISION_* above); consumed by
+    #: cloud/provisioning.reprovision_hosts
     needs_reprovision: str = ""
     provision_attempts: int = 0
     #: bootstrap method the host was actually provisioned with — compared

@@ -96,6 +96,10 @@ from typing import IO, Optional
 EXIT_CRASHED = 86
 EXIT_LOST = 70
 EXIT_FENCED = 75
+#: the port's own: a card fault (``KernelError``, ``MirrorError``) ended
+#: the worker, or a job plane's background runner; the supervisor
+#: restarts it like any other exit
+EXIT_KERNEL = 1
 
 
 def send_msg(fp: IO[str], lock: Optional[threading.Lock] = None,

@@ -92,11 +92,7 @@ from typing import List, Optional
 
 from ..utils import lockcheck as _lockcheck
 from . import manifest
-from .protocol import EXIT_FENCED, EXIT_LOST, parse_line, send_msg
-
-#: exit code of a worker whose tick raised a card fault (``KernelError``,
-#: ``MirrorError``): the supervisor restarts it like any other exit
-EXIT_KERNEL = 1
+from .protocol import EXIT_FENCED, EXIT_KERNEL, EXIT_LOST, parse_line, send_msg
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -439,9 +435,9 @@ class ShardWorker:
             return TickOptions(create_intent_hosts=False,
                                underwater_unschedule=False, use_cache=False)
         # service mode: the options units/crons.py passes a sharded round
-        return TickOptions(create_intent_hosts=True, use_cache=True,
-                           solve_deadline_s=10.0, tick_budget_s=12.0,
-                           async_persist=True)
+        from ..units.crons import service_tick_options
+
+        return service_tick_options()
 
     def _solver_options(self, opts, sol: dict):
         """Wire this round's solver-leader stamp into the tick: the

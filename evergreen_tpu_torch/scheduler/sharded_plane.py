@@ -59,11 +59,14 @@ to the shard that owns its distro (``find_host``, ``host_shard``,
 the classic CAS-pair assignment there through that shard's
 ``DispatcherService``.
 
-Left out, with what brings them: the constructor's ``topology`` and
-``max_handoffs_per_round`` options (the cron front end's sharding
-settings), fixed here at the shard count's topology and one handoff per
-round. ``ShardedScheduler(device=None)`` runs on the
-CUDA card and raises without one; pass ``device="cpu"`` for the CPU.
+The cron front end (``units/crons.py::scheduler_tick_jobs``) re-reads
+``ShardingConfig`` into an attached plane on every populate:
+``stacked``, ``rebalance_enabled``, ``max_handoffs_per_round`` and
+``barrier_timeout_s`` are plain attributes a round reads. Left out: the
+constructor's ``topology`` and ``max_handoffs_per_round`` options (no
+caller passes them), so a plane starts at the shard count's topology
+and one handoff per round. ``ShardedScheduler(device=None)`` runs on the CUDA card and raises
+without one; pass ``device="cpu"`` for the CPU.
 """
 from __future__ import annotations
 
@@ -444,8 +447,6 @@ class ShardedScheduler:
     _FLOOR_REPROBE_ROUNDS = 32
     #: tick rounds between handoff-record compaction checkpoints
     _COMPACT_EVERY_ROUNDS = 64
-    #: distro affinity groups the rebalancer migrates per round
-    _MAX_HANDOFFS_PER_ROUND = 1
 
     def __init__(
         self,
@@ -470,6 +471,9 @@ class ShardedScheduler:
         self.tick_opts = tick_opts or TickOptions(use_cache=True)
         self.stacked = stacked
         self.rebalance_enabled = rebalance_enabled
+        #: distro affinity groups the rebalancer migrates per round (JAX's
+        #: constructor default; the cron front end sets it)
+        self.max_handoffs_per_round = 1
         self.barrier_timeout_s = barrier_timeout_s
         # one worker PER shard: a stacked round's barrier needs every
         # shard's tick in flight at once
@@ -835,7 +839,7 @@ class ShardedScheduler:
             for k in range(self.n_shards)
         }
         plan = greedy_rebalance_plan(
-            levels, loads, round_ms, self._MAX_HANDOFFS_PER_ROUND,
+            levels, loads, round_ms, self.max_handoffs_per_round,
             cold_weight=cold_weight,
         )
         migrations: List[dict] = []

@@ -5,7 +5,10 @@ A copy of the part of ``evergreen_tpu/settings.py`` the port needs:
 ``service_flags``, ``capacity``, ``overrides``, ``release_mode``,
 ``overload``, ``sharding``, ``task_limits``, ``read_path`` and
 ``tracer`` sections (``models/cost.py`` registers ``cost`` as the JAX
-package's model does). Sections live in the same
+package's model does), and the job plane's: ``host_init``, ``api``,
+``auth``, ``logger_config``, ``amboy``, ``container_pools`` and
+``ssh``. ``spawnhost`` and ``sleep_schedule`` wait for their reader,
+the REST spawn-host surface. Sections live in the same
 ``config`` collection under the same ``_id`` with the same fields, so a
 section one package writes reads back the same in the other
 (``tests/test_torch_store.py``). The registry holds these sections only,
@@ -492,8 +495,9 @@ class TracerConfig(ConfigSection):
     """OTel-shaped trace export (reference config_tracer.go:11-23). The
     port reads ``xla_profile_dir`` (``utils/tracing.py::
     maybe_device_profile``: a torch.profiler capture of one solve); the
-    field keeps the JAX package's name so one document serves both. The
-    exporter the other fields configure is not ported."""
+    field keeps the JAX package's name so one document serves both; the
+    other fields configure the span exporter
+    (``utils/tracing.py::export_spans``)."""
 
     section_id = "tracer"
 
@@ -512,3 +516,151 @@ class TracerConfig(ConfigSection):
         if self.enabled and not self.collector_endpoint:
             return "enabled tracer needs a collector_endpoint"
         return ""
+
+
+# -- the job plane's sections ------------------------------------------------ #
+
+
+@register_section
+@dataclasses.dataclass
+class HostInitConfig(ConfigSection):
+    """reference config_hostinit.go. The port reads ``host_throttle``
+    (``units/crons.py::host_creation_jobs``: the intent hosts one
+    ``host-create`` job spawns). The JAX section's provisioning, status
+    batch and dynamic-host caps have no reader in either package."""
+
+    section_id = "host_init"
+
+    host_throttle: int = 32
+
+
+@register_section
+@dataclasses.dataclass
+class ApiConfig(ConfigSection):
+    """HTTP surface settings (reference config_api.go). The port reads
+    ``url``: the server URL baked into user data and deploy scripts
+    (``cloud/provisioning.py::resolve_api_url``). The JAX section's
+    webhook, SNS and body-size fields configure the REST surface, which
+    is not ported."""
+
+    section_id = "api"
+
+    url: str = ""
+
+
+@register_section
+@dataclasses.dataclass
+class AuthConfig(ConfigSection):
+    """User-manager selection + per-manager settings (reference
+    config_auth.go:103-116). Whole: migration
+    ``0004-okta-service-gates-to-auth`` (``storage/migrations.py``) reads
+    and rewrites the section, and a rewrite with fewer fields would drop
+    the others."""
+
+    section_id = "auth"
+
+    #: naive | github | okta | api_only | external | multi
+    preferred_type: str = "naive"
+    allow_service_users: bool = False
+    background_reauth_minutes: int = 0
+    #: manager kinds chained in order when preferred_type == "multi"
+    multi_managers: List[str] = dataclasses.field(default_factory=list)
+    #: naive manager: [{"username", "password"|"sha256:<hex>",
+    #: "display_name", "email"}]
+    naive_users: List[Dict] = dataclasses.field(default_factory=list)
+    github_client_id: str = ""
+    github_client_secret: str = ""
+    github_organization: str = ""
+    #: explicit GitHub allow-list admitted without org membership
+    github_users: List[str] = dataclasses.field(default_factory=list)
+    okta_client_id: str = ""
+    okta_client_secret: str = ""
+    okta_issuer: str = ""
+    #: the interactive-login gates (an extension of the reference's Okta
+    #: config, as in the JAX package)
+    okta_user_group: str = ""
+    okta_scopes: List[str] = dataclasses.field(default_factory=list)
+    okta_expected_email_domains: List[str] = dataclasses.field(
+        default_factory=list
+    )
+    external_validation_url: str = ""
+    egress_enabled: bool = False
+
+    def validate_and_default(self) -> str:
+        kinds = ("naive", "github", "okta", "api_only", "external")
+        if self.preferred_type not in kinds + ("multi",):
+            return f"unknown auth manager type {self.preferred_type!r}"
+        if self.preferred_type == "multi" and not self.multi_managers:
+            return "multi auth needs a multi_managers list"
+        for k in self.multi_managers:
+            if k not in kinds:
+                return f"unknown manager kind {k!r} in multi_managers"
+        for u in self.naive_users:
+            if not u.get("username"):
+                return "every naive auth user needs a username"
+        return ""
+
+
+@register_section
+@dataclasses.dataclass
+class LoggerConfig(ConfigSection):
+    """reference config_logger.go. The port reads ``default_level``
+    (``utils/log.py::configure``); the JAX section's buffer knobs and
+    request sampling configure its buffered sink and REST surface, which
+    are not ported."""
+
+    section_id = "logger_config"
+
+    default_level: str = "info"
+
+    def validate_and_default(self) -> str:
+        if self.default_level not in ("debug", "info", "warning", "error"):
+            return f"unknown log level {self.default_level!r}"
+        return ""
+
+
+@register_section
+@dataclasses.dataclass
+class AmboyConfig(ConfigSection):
+    """Background job plane sizing (reference config_amboy.go): the
+    ``JobQueue`` worker pool ``env.py::Environment.build`` starts."""
+
+    section_id = "amboy"
+
+    pool_size_local: int = 8
+
+    def validate_and_default(self) -> str:
+        if self.pool_size_local <= 0:
+            self.pool_size_local = 8
+        return ""
+
+
+@register_section
+@dataclasses.dataclass
+class ContainerPoolsConfig(ConfigSection):
+    """reference config_containerpools.go:10-28: the pools
+    ``cloud/docker.py::get_container_pools`` reads from this document."""
+
+    section_id = "container_pools"
+
+    #: list of {"id": ..., "distro": ..., "max_containers": N, "port": N}
+    pools: List[Dict] = dataclasses.field(default_factory=list)
+
+
+@register_section
+@dataclasses.dataclass
+class SshConfig(ConfigSection):
+    """SSH options for the host transport (reference config_ssh.go;
+    ``cloud/provisioning.py::transport_from_config``: a task-host key
+    selects ``SshTransport``). The spawn-host key fields are not ported."""
+
+    section_id = "ssh"
+
+    #: private-key file path
+    task_host_key_path: str = ""
+    user: str = "ubuntu"
+    connect_timeout_s: float = 10.0
+    #: bound on one deploy/setup script run
+    script_timeout_s: float = 1800.0
+    #: extra -o options, e.g. ["StrictHostKeyChecking=no"]
+    options: List[str] = dataclasses.field(default_factory=list)

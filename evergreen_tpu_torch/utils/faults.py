@@ -40,6 +40,9 @@ firing is counted in ``faults_fired_total{seam}`` and logged. Seams:
   ``recovery.pass``   the startup recovery pass's entry
                       (scheduler/recovery.py): a shard worker's boot kill
                       point (``runtime/worker.py --crash``)
+  ``cloud.spawn``     a provider spawn in the create pass
+                      (cloud/provisioning.py): charged to the host as a
+                      provision attempt
 
 Fault kinds: ``raise`` (the configured exception, default FaultError),
 ``hang``/``delay`` (sleep ``delay_s``), ``crash`` (``os._exit(86)``),

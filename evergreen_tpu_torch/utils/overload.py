@@ -20,9 +20,16 @@ Fused signals (gauges, pushed with ``observe``):
                         WAL group commit, fed by ``run_tick``
   ``api_rps``           request rate over the HTTP surface
 
-The port has no job queue, outbox or HTTP surface, so ``queue_pending``,
+``queue/jobs.py::JobQueue`` pushes ``queue_pending`` after every enqueue
+and every finished job. The port has no outbox or HTTP surface, so
 ``outbox_depth`` and ``api_rps`` read 0 unless a caller pushes them, as
 they read on an idle JAX store.
+
+The ``overload_level`` gauge holds the level after each evaluation and
+transition, ``overload_signal`` each fused signal's raw value;
+``refresh_gauges`` freshens both without touching the hysteresis state
+(the JAX package's ``/metrics`` scrape path). ``retry_after_s`` is the
+client backoff the level implies.
 
 Levels (monotone ladder; higher sheds strictly more): GREEN, YELLOW, RED,
 BLACK. Upward transitions apply immediately; downward transitions need
@@ -75,6 +82,19 @@ FLEET_LEVEL = _metrics.gauge(
     "overload_fleet_level",
     "Fleet-level overload fuse over the per-shard ladders (sharded "
     "control plane): 0=green 1=yellow 2=red 3=black.",
+)
+
+
+OVERLOAD_LEVEL = _metrics.gauge(
+    "overload_level",
+    "Current overload-ladder level (0=green 1=yellow 2=red 3=black).",
+)
+OVERLOAD_SIGNAL = _metrics.gauge(
+    "overload_signal",
+    "Raw value of each fused load signal at the last evaluation "
+    "(tick_lag_s, queue_pending, wal_backlog, outbox_depth, "
+    "store_latency_ms, api_rps).",
+    labels=("signal",),
 )
 
 
@@ -230,6 +250,8 @@ class LoadMonitor:
                 gauges.get("api_rps", 0.0), cfg.api_rps_levels
             ),
         }
+        for name in per_signal:
+            OVERLOAD_SIGNAL.set(gauges.get(name, 0.0), signal=name)
         return max(per_signal.values()), per_signal
 
     def evaluate(self) -> int:
@@ -259,9 +281,23 @@ class LoadMonitor:
             else:
                 self._calm_streak = 0
             level = self._level
+        # set unconditionally, not just on transitions: a freshly
+        # started process must expose the series at GREEN, not nothing
+        OVERLOAD_LEVEL.set(float(level))
         if transition is not None:
             self._note_transition(transition[0], transition[1], per_signal)
         return level
+
+    def refresh_gauges(self) -> None:
+        """Read-only freshen of the exported gauges: recomputes the fused
+        signals and the level gauge without touching the hysteresis
+        state, so a scraper polling faster than the eval cadence cannot
+        shrink the calm window ``evaluate()`` counts toward a downward
+        transition."""
+        self._raw_level()
+        with self._lock:
+            level = self._level
+        OVERLOAD_LEVEL.set(float(level))
 
     def _maybe_auto_evaluate(self) -> None:
         """Gauge pushes re-evaluate at most once per eval interval, so a
@@ -279,6 +315,7 @@ class LoadMonitor:
         from .log import get_logger
 
         LEVEL_CHANGES.inc(level=level_name(new))
+        OVERLOAD_LEVEL.set(float(new))
         drivers = sorted(
             s for s, lvl in per_signal.items() if lvl >= new and new > GREEN
         )
@@ -316,6 +353,18 @@ class LoadMonitor:
     def level(self) -> int:
         with self._lock:
             return max(self._level, self._floor_level)
+
+    def retry_after_s(self, level: Optional[int] = None) -> float:
+        """Client backoff derived from the level (RED: sit out two
+        cadences; BLACK: four): the Retry-After the JAX package's API
+        surface sends."""
+        cfg = self.config
+        level = self.level() if level is None else level
+        if level >= BLACK:
+            return float(cfg.retry_after_black_s)
+        if level >= RED:
+            return float(cfg.retry_after_red_s)
+        return 0.0
 
 
 # -- per-store singletons ----------------------------------------------------- #

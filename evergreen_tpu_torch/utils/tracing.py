@@ -31,9 +31,14 @@ serves both packages) the body runs under ``torch.profiler.profile``
 with CPU and, on a CUDA machine, CUDA activities, and writes one Chrome
 trace there; once per configured directory per process.
 
-Left out, with their callers (the REST admin surface and the cron
-front end's exporter): ``recent_traces``, ``get_spans``, ``_stable_id``,
-``_otlp_payload`` and ``export_spans``.
+The exporter (``export_spans``, the cron plane's ``span-export`` job)
+pushes the ``spans`` collection to an OTLP/HTTP collector when the
+tracer config enables it, shaped by ``_otlp_payload`` with ids from
+``_stable_id``, and then drops what it pushed; ``recent_traces`` and
+``get_spans`` read the ring and the collection. The OTLP scope names
+keep the JAX package's ``evergreen_tpu.<component>`` and the resource
+its ``evergreen-tpu`` service name, so one collector sees both packages
+as one service.
 """
 from __future__ import annotations
 
@@ -330,6 +335,162 @@ def trace_tree(store: Optional[Store], trace_id: str) -> Optional[dict]:
         else:
             roots.append(node)
     return {"trace_id": trace_id, "n_spans": len(spans), "roots": roots}
+
+
+def recent_traces(store: Optional[Store], last: int = 10) -> List[dict]:
+    """Newest-last summaries of the ring's traces (falling back to store
+    root spans for traces that aged out of the ring)."""
+    seen = {}
+    for tid, spans in trace_ring_for(store).traces():
+        root = next((s for s in spans if not s.get("parent")), spans[0])
+        seen[tid] = {
+            "trace_id": tid,
+            "root": root.get("name", ""),
+            "component": root.get("component", ""),
+            "started_at": min(s.get("started_at", 0.0) for s in spans),
+            "duration_ms": round(root.get("duration_ms", 0.0), 3),
+            "n_spans": len(spans),
+        }
+    if store is not None and len(seen) < last:
+        try:
+            for s in store.collection(SPANS_COLLECTION).find(
+                lambda d: not d.get("parent")
+            ):
+                tid = s.get("trace_root") or s["_id"]
+                seen.setdefault(tid, {
+                    "trace_id": tid,
+                    "root": s.get("name", ""),
+                    "component": s.get("component", ""),
+                    "started_at": s.get("started_at", 0.0),
+                    "duration_ms": round(s.get("duration_ms", 0.0), 3),
+                    "n_spans": 0,
+                })
+        except Exception:  # noqa: BLE001
+            pass
+    out = sorted(seen.values(), key=lambda d: d["started_at"])
+    return out[-max(1, int(last)):]
+
+
+def get_spans(store: Store, component: str = "") -> List[dict]:
+    spans = store.collection(SPANS_COLLECTION).find(
+        (lambda d: d["component"] == component) if component else None
+    )
+    spans.sort(key=lambda d: d["started_at"])
+    return spans
+
+
+# --------------------------------------------------------------------------- #
+# OTLP export (reference config_tracer.go + environment.go:1070 tracer init)
+# --------------------------------------------------------------------------- #
+
+
+def _stable_id(s: str, hex_chars: int) -> str:
+    """Process- and restart-stable id digits (sha256, NOT Python's salted
+    hash(): parent/child links must survive service restarts)."""
+    import hashlib
+
+    return hashlib.sha256(s.encode()).hexdigest()[:hex_chars]
+
+
+def _otlp_payload(spans: List[dict]) -> dict:
+    """Shape store spans as an OTLP/HTTP JSON ExportTraceServiceRequest
+    (one resource, one scope per component)."""
+    by_component: Dict[str, List[dict]] = {}
+    for s in spans:
+        by_component.setdefault(s.get("component", ""), []).append(s)
+    scope_spans = []
+    for component, group in by_component.items():
+        otlp_spans = []
+        for s in group:
+            start_ns = int(s.get("started_at", 0.0) * 1e9)
+            end_ns = start_ns + int(s.get("duration_ms", 0.0) * 1e6)
+            otlp_spans.append(
+                {
+                    # the recorded root spans the whole nesting chain, so
+                    # grandchildren share the root's trace id
+                    "traceId": _stable_id(
+                        s.get("trace_root") or s["_id"], 32
+                    ),
+                    "spanId": _stable_id(s["_id"], 16),
+                    "parentSpanId": (
+                        _stable_id(s["parent"], 16) if s.get("parent") else ""
+                    ),
+                    "name": s.get("name", ""),
+                    "startTimeUnixNano": str(start_ns),
+                    "endTimeUnixNano": str(end_ns),
+                    "attributes": [
+                        {"key": k, "value": {"stringValue": str(v)}}
+                        for k, v in (s.get("attributes") or {}).items()
+                    ],
+                }
+            )
+        scope_spans.append(
+            {"scope": {"name": f"evergreen_tpu.{component}"},
+             "spans": otlp_spans}
+        )
+    return {
+        "resourceSpans": [
+            {
+                "resource": {
+                    "attributes": [
+                        {"key": "service.name",
+                         "value": {"stringValue": "evergreen-tpu"}}
+                    ]
+                },
+                "scopeSpans": scope_spans,
+            }
+        ]
+    }
+
+
+def export_spans(store: Store, endpoint: str = "", batch: int = 512) -> int:
+    """Push un-exported spans to an OTLP/HTTP collector (`/v1/traces`),
+    then DELETE them locally — once exported, the collector is the span
+    store, and keeping them would grow the collection and its per-minute
+    scan without bound. No-op unless the tracer config section is enabled
+    (reference: tracing is configured from the tracer section,
+    config_tracer.go:11-23, and initialized env-wide, environment.go:1070).
+    Sampling drops (1 - sample_ratio) of whole traces at export time,
+    deterministically by trace root."""
+    import json as _json
+    import urllib.request
+
+    from ..settings import TracerConfig
+
+    cfg = TracerConfig.get(store)
+    endpoint = endpoint or cfg.collector_endpoint
+    if not cfg.enabled or not endpoint:
+        return 0
+    coll = store.collection(SPANS_COLLECTION)
+    pending = coll.find()[:batch]
+    if cfg.sample_ratio < 1.0:
+        keep = []
+        for s in pending:
+            # stable across restarts (sha256, not salted hash) and keyed
+            # on the ROOT so a trace is kept or dropped whole
+            bucket = int(_stable_id(s.get("trace_root") or s["_id"], 8), 16)
+            if (bucket % 10_000) / 10_000.0 < cfg.sample_ratio:
+                keep.append(s)
+            else:
+                coll.remove(s["_id"])
+        pending = keep
+    if not pending:
+        return 0
+    body = _json.dumps(_otlp_payload(pending)).encode()
+    req = urllib.request.Request(
+        endpoint.rstrip("/") + "/v1/traces",
+        data=body,
+        method="POST",
+        headers={"Content-Type": "application/json"},
+    )
+    with urllib.request.urlopen(req, timeout=10.0):  # a failed POST leaves the spans for the next sweep
+        pass
+    # the collector owns exported spans now: drop them so the spans
+    # collection (and the per-minute not-yet-exported scan) stays bounded
+    # on a long-lived service
+    for s in pending:
+        coll.remove(s["_id"])
+    return len(pending)
 
 
 # --------------------------------------------------------------------------- #

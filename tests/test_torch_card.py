@@ -857,3 +857,65 @@ def test_card_process_fleet_writes_the_cpu_documents(cuda_device, tmp_path):
     n, solves = launches["cuda"]
     assert n == len(solves) == 4 and set(solves) <= {"stacked", "local"}
     assert launches["cpu"][0] == 0
+
+
+@pytest.mark.cuda
+def test_card_cron_round_writes_the_cpu_documents(cuda_device, monkeypatch):
+    """One cron round of the job plane (``Environment.build`` on a
+    caller's store, one worker, ``cron_runner.tick(force=True)``) on the
+    card and on the CPU, each on its own uuid4 stream and event sequence
+    under one pinned clock: every job completed, the tick job planned by
+    the card with its kernels launched once, and every document equal
+    (span ids, times and threads masked; a system sample's process
+    readings and a runtime-stats record's wall times too)."""
+    import itertools
+    import random
+    import time
+    import uuid
+
+    from evergreen_tpu_torch.cloud.mock import MockCloudManager
+    from evergreen_tpu_torch.env import Environment
+    from evergreen_tpu_torch.models import distro as distro_mod
+    from evergreen_tpu_torch.models import event as event_mod
+    from evergreen_tpu_torch.models import host as host_mod
+    from evergreen_tpu_torch.models import task as task_mod
+    from evergreen_tpu_torch.storage.store import Store
+
+    distros, tbd, hbd, _, _ = generate_problem(12, 2_000, seed=6)
+    monkeypatch.setattr(time, "time", lambda: NOW)
+    docs = {}
+    for key in ("cuda", "cpu"):
+        rng = random.Random(99)
+        monkeypatch.setattr(uuid, "uuid4", lambda: uuid.UUID(int=rng.getrandbits(128)))
+        monkeypatch.setattr(event_mod, "_SEQ", itertools.count())
+        MockCloudManager.reset()
+        store = Store()
+        for dist in distros:
+            distro_mod.insert(store, dist)
+        task_mod.insert_many(store, [t for ts in tbd.values() for t in ts])
+        for hs in hbd.values():
+            host_mod.insert_many(store, hs)
+        env = Environment.build(store=store, workers=1,
+                                device=None if key == "cuda" else "cpu")
+        try:
+            before = fused_distro_stats.launches
+            assert env.cron_runner.tick(force=True) == 16
+            assert env.queue.wait_idle(120.0)
+            if key == "cuda":
+                assert fused_distro_stats.launches - before == 1
+        finally:
+            env.close()
+        assert {d["status"] for d in store.collection("jobs").find()} == {"completed"}
+        tick = [s for s in store.collection("spans").find() if s["name"] == "tick"][-1]
+        assert (tick["attributes"]["planner_used"], tick["attributes"]["degraded"]) == (
+            "tpu", "")
+        masks = {"system_stats": ("max_rss_kb", "cpu_user_s"),
+                 "log_lines": ("snapshot_ms", "solve_ms", "total_ms", "gauges")}
+        docs[key] = {
+            n: [_canon_span(d) if n == "spans" else
+                {k: v for k, v in d.items() if k not in masks.get(n, ())}
+                for d in store.collection(n).find()
+                if n != "spans" or d["name"] != "arena_lease"]
+            for n in sorted(store._collections)}
+    MockCloudManager.reset()
+    assert docs["cuda"] == docs["cpu"]

@@ -423,8 +423,9 @@ def test_sharded_plane_constants_match_the_jax_package():
             assert t_sig[name].default == j_sig[name].default, name
     assert set(j_sig) - set(t_sig) == {"topology", "max_handoffs_per_round"}
     assert j_sig["topology"].default is None
-    assert (t_plane.ShardedScheduler._MAX_HANDOFFS_PER_ROUND
-            == j_sig["max_handoffs_per_round"].default)
+    plane = t_plane.ShardedScheduler([t_store.Store()], device="cpu")
+    assert plane.max_handoffs_per_round == j_sig["max_handoffs_per_round"].default
+    plane.close()
     # the in-memory store's durability hooks are JAX's no-ops
     t_s, j_s = t_store.Store(), j_store.Store()
     assert (t_s.fenced, t_s.heal_durability(), t_s.begin_tick(),
@@ -555,10 +556,30 @@ def test_fleet_runtime_constants_match_the_jax_package():
         t_rng, j_rng = random.Random(7), random.Random(7)
         assert [t_p.backoff_s(a, t_rng) for a in range(8)] == [
             j_p.backoff_s(a, j_rng) for a in range(8)], kw
-    # the retry loop and its fields wait for their adopters
-    assert not hasattr(t_retry.RetryPolicy, "call") and hasattr(j_retry.RetryPolicy, "call")
-    assert {f.name for f in dataclasses.fields(j_retry.RetryPolicy)} - {
-        f.name for f in dataclasses.fields(t_retry.RetryPolicy)} == {"deadline_s", "retry_on"}
+    # the retry loop (the provisioning plane's status read adopts it):
+    # JAX's fields, and the same attempts, pauses and outcome
+    assert [f.name for f in dataclasses.fields(t_retry.RetryPolicy)] == [
+        f.name for f in dataclasses.fields(j_retry.RetryPolicy)]
+    for kw, fails in ((dict(attempts=4), 2), (dict(attempts=3), 5),
+                      (dict(attempts=5, deadline_s=0.3, base_backoff_s=0.1), 9),
+                      (dict(attempts=3, retry_on=(KeyError,)), 1)):
+        got = []
+        for mod in (t_retry, j_retry):
+            calls, sleeps = [], []
+
+            def fn(n=fails):
+                calls.append(1)
+                if len(calls) <= n:
+                    raise ValueError(f"failure {len(calls)}")
+                return len(calls)
+
+            try:
+                out = mod.RetryPolicy(**kw).call(fn, operation="op", sleep=sleeps.append,
+                                                 rng=random.Random(3))
+            except ValueError as exc:
+                out = repr(exc)
+            got.append((out, len(calls), sleeps))
+        assert got[0] == got[1], kw
     # the worker's flags: JAX's, less bench mode, plus --device
     def flags(parser):
         return {a.dest: a.default for a in parser._actions if a.dest != "help"}
@@ -632,6 +653,17 @@ def _copied_dataclasses():
     from evergreen_tpu_torch.models import version as t_version
     from evergreen_tpu_torch.scheduler import recovery as t_recovery
 
+    from evergreen_tpu.cloud import docker as j_docker
+    from evergreen_tpu.cloud import userdata as j_userdata
+    from evergreen_tpu.cloud import volumes as j_volumes
+    from evergreen_tpu.models import taskstats as j_taskstats
+    from evergreen_tpu.models import user as j_user
+    from evergreen_tpu_torch.cloud import docker as t_docker
+    from evergreen_tpu_torch.cloud import userdata as t_userdata
+    from evergreen_tpu_torch.cloud import volumes as t_volumes
+    from evergreen_tpu_torch.models import taskstats as t_taskstats
+    from evergreen_tpu_torch.models import user as t_user
+
     pairs = [
         (t_distro, j_distro, ("PlannerSettings", "HostAllocatorSettings",
                               "BootstrapSettings", "DispatcherSettings",
@@ -649,6 +681,12 @@ def _copied_dataclasses():
         (t_version, j_version, ("Version",)),
         (t_cost, j_cost, ("CostConfig",)),
         (t_recovery, j_recovery, ("RecoveryReport",)),
+        (t_user, j_user, ("User",)),
+        (t_taskstats, j_taskstats, ("DurationRollup",)),
+        (t_volumes, j_volumes, ("SleepSchedule",)),
+        (t_docker, j_docker, ("ContainerPool",)),
+        (t_userdata, j_userdata, ("UserData",)),
+        (t_settings, j_settings, ("AuthConfig", "ContainerPoolsConfig")),
         (t_serial, j_serial, ("RunningTaskEstimate", "Unit",
                               "AllocatorInput")),
     ]
@@ -772,3 +810,106 @@ def test_dispatch_and_tracing_copies_match_the_jax_package():
     t_ring, j_ring = t_tracing.TraceRing(), j_tracing.TraceRing()
     assert (t_ring.max_traces, t_ring.max_spans_per_trace) == (
         j_ring.max_traces, j_ring.max_spans_per_trace)
+
+
+def test_job_plane_copies_match_the_jax_package():
+    """The job plane's copies: the priority classes, the provisioning
+    plane's caps and windows, the monitors' windows, the registered
+    populators' intervals, the migration names, the user-data directive
+    tables, the instruments, and the job plane's config sections (the
+    ones copied in part hold JAX's defaults for the fields they keep)."""
+    from evergreen_tpu import settings as j_settings
+    from evergreen_tpu.cloud import provisioning as j_prov
+    from evergreen_tpu.cloud import spawnhost as j_spawnhost
+    from evergreen_tpu.cloud import userdata as j_userdata
+    from evergreen_tpu.models import taskstats as j_taskstats
+    from evergreen_tpu.queue import jobs as j_jobs
+    from evergreen_tpu.storage import migrations as j_migrations
+    from evergreen_tpu.storage.store import Store as JStore
+    from evergreen_tpu.units import crons as j_crons
+    from evergreen_tpu.units import host_jobs as j_host_jobs
+    from evergreen_tpu.units import task_jobs as j_task_jobs
+    from evergreen_tpu.utils import overload as j_overload
+    from evergreen_tpu.utils import retry as j_retry
+    from evergreen_tpu_torch import settings as t_settings
+    from evergreen_tpu_torch.cloud import provisioning as t_prov
+    from evergreen_tpu_torch.cloud import spawnhost as t_spawnhost
+    from evergreen_tpu_torch.cloud import userdata as t_userdata
+    from evergreen_tpu_torch.models import taskstats as t_taskstats
+    from evergreen_tpu_torch.queue import jobs as t_jobs
+    from evergreen_tpu_torch.storage import migrations as t_migrations
+    from evergreen_tpu_torch.storage.store import Store as TStore
+    from evergreen_tpu_torch.units import crons as t_crons
+    from evergreen_tpu_torch.units import host_jobs as t_host_jobs
+    from evergreen_tpu_torch.units import task_jobs as t_task_jobs
+    from evergreen_tpu_torch.utils import overload as t_overload
+    from evergreen_tpu_torch.utils import retry as t_retry
+
+    pairs = {
+        t_jobs: (j_jobs, ("PRIORITY_AGENT", "PRIORITY_PLANNING", "PRIORITY_RECONCILE",
+                          "PRIORITY_STATS", "PRIORITY_NAMES", "JOBS_COLLECTION")),
+        t_prov: (j_prov, ("MAX_AGENT_DEPLOY_ATTEMPTS", "MAX_PROVISION_ATTEMPTS",
+                          "USER_DATA_DONE_TIMEOUT_S", "MAX_UNCOMMUNICATED_S")),
+        t_host_jobs: (j_host_jobs, ("HOSTSTATS_COLLECTION", "DEFAULT_IDLE_CUTOFF_S",
+                                    "MAX_STRANDED_TASK_RESTARTS", "CAPACITY_TARGET_TTL_S")),
+        t_task_jobs: (j_task_jobs, ("DEFAULT_HEARTBEAT_TIMEOUT_S", "ARCHIVE_COLLECTION",
+                                    "SYSTEM_STATS_COLLECTION", "_SYSTEM_STATS_KEEP")),
+        t_taskstats: (j_taskstats, ("COLLECTION", "DEFAULT_WINDOW_S")),
+        t_spawnhost: (j_spawnhost, ()),
+        t_userdata: (j_userdata, ("DIRECTIVES", "CONTENT_TYPES", "CLOSING_TAGS",
+                                  "_CAN_PERSIST", "_MIME_BOUNDARY")),
+        t_migrations: (j_migrations, ("COLLECTION",)),
+    }
+    for t_mod, (j_mod, names) in pairs.items():
+        for name in names:
+            assert getattr(t_mod, name) == getattr(j_mod, name), name
+    assert dataclasses.asdict(t_prov._STATUS_RETRY) == dataclasses.asdict(j_prov._STATUS_RETRY)
+    assert [f.name for f in dataclasses.fields(t_retry.RetryPolicy)] == [
+        f.name for f in dataclasses.fields(j_retry.RetryPolicy)]
+    assert sorted(t_migrations._REGISTRY) == sorted(j_migrations._REGISTRY)
+    # the registered populators and their intervals: JAX's less the four
+    # whose modules are not ported
+    t_q, j_q = t_jobs.JobQueue(TStore(), workers=1), j_jobs.JobQueue(JStore(), workers=1)
+    try:
+        t_ops = [(op.name, op.interval_s) for op in
+                 t_crons.build_cron_runner(t_q.store, t_q, device="cpu").ops]
+        j_ops = [(op.name, op.interval_s) for op in j_crons.build_cron_runner(
+            j_q.store, j_q).ops]
+    finally:
+        t_q.close()
+        j_q.close()
+    assert t_ops == [op for op in j_ops if op[0] not in (
+        "generate-tasks", "activation", "repotracker", "event-notifier")]
+    for t_mod, j_mod, names in (
+            (t_jobs, j_jobs, ("JOBS_DUPLICATE_DROPPED", "JOBS_QUARANTINE_DROPPED",
+                              "JOBS_QUARANTINED", "JOBS_SHED", "JOBS_PENDING",
+                              "JOBS_RUN_MS", "CRON_SHED")),
+            (t_crons, j_crons, ("CRON_DEFERRED",)),
+            (t_prov, j_prov, ("CLOUD_SPAWN_FAILED", "CLOUD_STATUS_FAILED")),
+            (t_host_jobs, j_host_jobs, ("RECOVERY_STRANDED", "HOSTS_REAP_MISSING_TS",
+                                        "CLOUD_SPOT_RECLAIMED",
+                                        "DRAWDOWN_CAPACITY_TARGETS")),
+            (t_retry, j_retry, ("RETRY_EXHAUSTED",)),
+            (t_overload, j_overload, ("OVERLOAD_LEVEL", "OVERLOAD_SIGNAL"))):
+        for name in names:
+            t_i, j_i = getattr(t_mod, name), getattr(j_mod, name)
+            assert (t_i.kind, t_i.name, t_i.labelnames, t_i.help) == (
+                j_i.kind, j_i.name, j_i.labelnames, j_i.help), name
+    # the sections copied in part: JAX's section ids and, for the fields
+    # the port reads, JAX's names, types and defaults
+    for name in ("ApiConfig", "LoggerConfig", "AmboyConfig", "SshConfig", "HostInitConfig"):
+        t_cls, j_cls = getattr(t_settings, name), getattr(j_settings, name)
+        assert t_cls.section_id == j_cls.section_id
+        j_spec = {f[0]: f for f in _field_spec(j_cls)}
+        assert [j_spec[f[0]] for f in _field_spec(t_cls)] == _field_spec(t_cls), name
+    assert [f.name for f in dataclasses.fields(t_settings.HostInitConfig)] == ["host_throttle"]
+    # the spawn-host sections wait for the REST spawn-host surface
+    for name in ("SpawnHostConfig", "SleepScheduleConfig"):
+        assert hasattr(j_settings, name) and not hasattr(t_settings, name)
+    for bad in (dict(pool_size_local=0), dict(default_level="loud")):
+        for name in ("AmboyConfig", "LoggerConfig"):
+            t_cls, j_cls = getattr(t_settings, name), getattr(j_settings, name)
+            if set(bad) <= {f.name for f in dataclasses.fields(t_cls)}:
+                t_obj, j_obj = t_cls(**bad), j_cls(**bad)
+                assert t_obj.validate_and_default() == j_obj.validate_and_default()
+                assert dataclasses.asdict(t_obj).items() <= dataclasses.asdict(j_obj).items()
