@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--profile OUT_DIR | --sweep]
 
 from the root of a checkout; it needs one card. Phases (any failure
-raises and exits non-zero):
+raises and exits non-zero; 6 and 7 run after phase 9's profiled round,
+beside the fleet process, see phase 10):
 
 1. card and build: the card's name and power limit, then every kernel of
    the solve built from csrc/ (one nvcc per source, in parallel); the SM
@@ -88,7 +89,9 @@ raises and exits non-zero):
    then the wall time of each phase of the two solve ticks, and the
    garbage collector's share of it. Each tick follows a full
    ``gc.collect()`` (a second run on fresh stores with the CPU's store
-   ticked first was cut when phase 8's loop needed the time);
+   ticked first was cut when phase 8's loop needed the time), under the
+   interpreter's default collector (``untuned_gc``: phase 8 tunes it for
+   the process);
 8. the service's tick (``TickOptions(use_cache=True)``): config 3 in
    three stores (warm on the card, warm on the CPU, cold on the card),
    five ticks with churn, a solve fault, a distro-set change and a quiet
@@ -156,7 +159,11 @@ raises and exits non-zero):
    span attributes a fresh store records otherwise (``FRESH_ATTRS``); a
    thief takes (a)'s lease, (a)'s tick is ``"fenced"`` (no launch, no
    WAL byte, no document changed but the fenced tick's own root span in
-   memory, the plane dropped); (b) checkpoints; then a durable fleet
+   memory, the plane dropped); (b) checkpoints; and, in the fleet
+   process beside phases 9, 6, 7 and 10 (``fleet_phases``, run by
+   ``start_fleet_child``: it shares no store, directory or
+   port with them; it starts before phase 8 and touches the card only
+   after phase 8, which times a kernel, and phase 9's profiled round), a durable fleet
    (``ShardedScheduler.build(4, data_dir=..., stacked="always")`` on
    the card, its modes held to ``FLEET_MODES`` as phase 9 holds plane
    (a)'s) against an in-memory CPU plane, seeded in one group frame a
@@ -171,7 +178,8 @@ raises and exits non-zero):
    loop). Prints every tick's phases with ``wal_commit``, the frame
    writes, the barrier waits, WAL bytes, replay, checkpoint and
    ``open_fleet`` ms;
-11. the process-per-shard fleet (``process_fleet_phase``): config 3
+11. in the fleet process after phase 10's durable fleet, the
+   process-per-shard fleet (``process_fleet_phase``): config 3
    seeded over four shard segments at epoch 0 (each shard a quarter of
    phase 6's quota and intent budget) with a churn written without a
    lease that each recovery step acts on (benchgen's phantom
@@ -239,7 +247,19 @@ raises and exits non-zero):
    before each command, the logs posted) and ends with its outcome, then
    every free host pulls in id order; the finished tasks, the (host,
    task) pairs and every document equal, the generator's payload
-   staged. Each environment runs on its
+   staged (the first ``PASS_PULLS`` free hosts pull: 2,048 since PR
+   15). Before round ``ADMIN_ROUND``'s ticks the admin round
+   (``admin_sequence``), through both environments'
+   ``RestApi.handle`` with the superuser's key: the pushed version
+   aborted and restarted, a distro with queued tasks refused while its
+   hosts live, drained and deleted, ``set_admin`` of the capacity
+   budget and a task limit, an annotation, the reliability of the seeded
+   project, the pushed project copied with its variables, every answer
+   (a) = (b); after the round's ticks (``admin_checks``) the card's tick
+   planned one distro fewer, no queue holds the deleted distro or its
+   tasks, the card plane's snapshot equals a cold build of the same
+   gather and its mirror the host truth, the capacity fleet (a) = (b)
+   within the new budget. Each environment runs on its
    own uuid4 stream, event sequence, mock cloud table and log sink, on
    one pinned clock (the REST handlers read it too), the overload
    ladder's disk- and clock-fed rungs and its request-rate rung off
@@ -313,7 +333,13 @@ raises and exits non-zero):
    are handed, the patch's tasks among them; after the user's loop
    (``entry_operator``) a subscription made over REST is listed, deleted
    and gone through ``subscriptions`` processes (no ``torch``), and
-   ``/metrics`` and ``/healthz/ready`` answer; SIGTERM. Held: the patch
+   ``/metrics`` and ``/healthz/ready`` answer; after the agents
+   (``entry_admin``) ``version`` and ``admin set-flag`` processes
+   (no ``torch``) aimed at the replica: a user without the superuser
+   scope gets the 403 answer, and 403 to its read of the settings, the superuser's write of
+   ``service_flags.ENTRY_FLAG`` is forwarded and read back on the replica
+   and the service, whose next tick reads it (``entry_admin_read``: a
+   tick without the capacity phase on its ``/metrics``); SIGTERM. Held: the patch
    process imported no ``torch``, every patch task ends ``success``
    (``GET /rest/v2/tasks/{id}``) and the patch is started with its
    version (``GET /rest/v2/patches/{id}``); then a user's loop
@@ -327,7 +353,8 @@ raises and exits non-zero):
    and released its writer lease, the reopened directory holds the
    agents' ends, every tick the service ran planned on the card with no
    degradation, and the launches its drain line prints are exactly those
-   of that many solves;
+   of that many solves, the ticks after the flag without the capacity
+   page;
 14. a JSON line of the kernels (launches: phases 7–13, by path, phase
    8's loop as the path "loop", phase 10's in-memory control store as
    "durable control", phase 12's card environment as "cron" (round 1)
@@ -404,12 +431,16 @@ SS_VARIANTS = [dict(SEGMENT_SUM_THREADS=t, SEGMENT_SUM_PIECE=p,
 
 
 _T0 = time.perf_counter()
+#: what the fleet process (``fleet_child``) puts before each of its lines
+_TAG = ""
+#: the interpreter's collector thresholds, before phase 8 tunes them
+_GC_THRESHOLDS = __import__("gc").get_threshold()
 
 
 def log(msg: str) -> None:
     """One line of the run's log, after the wall seconds since the
     script started."""
-    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {_TAG}{msg}", flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1642,6 +1673,29 @@ class GcClock:
             self._t0 = None
 
 
+class untuned_gc:
+    """The interpreter's default collector inside the block (the objects
+    ``gc.freeze`` kept out of its scans back in them, its starting
+    thresholds), phase 8's tuning (``tune_gc_for_long_lived_heap``) again
+    after it: phase 7 measures the collector's share of an untuned
+    tick, and runs after phase 8."""
+
+    def __enter__(self):
+        import gc
+
+        self.thresholds = gc.get_threshold()
+        self.frozen = gc.get_freeze_count() > 0
+        gc.unfreeze()
+        gc.set_threshold(*_GC_THRESHOLDS)
+
+    def __exit__(self, *exc):
+        import gc
+
+        if self.frozen:
+            gc.freeze()
+        gc.set_threshold(*self.thresholds)
+
+
 def tick_phase(torch, np, problem, card="cuda", card_first=True, ticks=None) -> dict:
     """Phase 7, ticking the card's store before the CPU's at each step
     when ``card_first``, else after it; ``ticks`` runs only the steps of
@@ -2542,10 +2596,12 @@ def fleet_pull(planes, now) -> None:
         f"{1e3 * n_assigned / ms['c']:.0f}")
 
 
-def sharded_phase(torch, np, problem, card="cuda") -> dict:
+def sharded_phase(torch, np, problem, card="cuda", after_profile=None) -> dict:
     """Phase 9: the sharded plane at config 3 over four shard stores on
-    one card, in three planes ticked round by round. Returns the card
-    planes' launches. ``card="cpu"`` rehearses it on the CPU."""
+    one card, in three planes ticked round by round; ``after_profile()``
+    is called once round ``PROFILED_ROUND`` (profiled on the card) is
+    done. Returns the card planes' launches. ``card="cpu"`` rehearses it
+    on the CPU."""
     from evergreen_tpu_torch.ops import distro_stats
     from evergreen_tpu_torch.ops._build import KernelError
     from evergreen_tpu_torch.ops.distro_stats import fused_distro_stats
@@ -2679,6 +2735,8 @@ def sharded_phase(torch, np, problem, card="cuda") -> dict:
                     f"synchronisation {t['sync_ms']:.2f} ms summed over the shard "
                     f"threads ({t['sync_max_thread_ms']:.2f} ms in the most waiting "
                     f"one), {t['kernel_launches']} kernel launches")
+            if r == PROFILED_ROUND and after_profile is not None:
+                after_profile()
         fleet_pull(planes, NOW + len(PLANE_ROUNDS) * TICK_STEP_S)
     finally:
         time.time = real_time
@@ -2888,7 +2946,7 @@ def durable_phase(torch, np, problem, card="cuda", root=DATA_ROOT) -> dict:
     distros = problem[0]
     keep = {d.id for d in distros[:-1]}
     shutil.rmtree(root, ignore_errors=True)
-    dirs = {k: os.path.join(root, k) for k in ("a", "b", "fleet")}
+    dirs = {k: os.path.join(root, k) for k in ("a", "b")}
     leases, stores, seed_ms = {}, {}, {}
     for key, on, is_durable in DURABLE_STORES:
         t0 = time.perf_counter()
@@ -2922,7 +2980,7 @@ def durable_phase(torch, np, problem, card="cuda", root=DATA_ROOT) -> dict:
         watch(key, stores[key])
     seqs = {k: itertools.count() for k in stores}
     real_uuid4, real_time = uuid.uuid4, time.time
-    launches_by = {"a": {}, "c": {}, "replayed": {}, "fleet": {}}
+    launches_by = {"a": {}, "c": {}, "replayed": {}}
 
     def add(key, got):
         for k_, v in got.items():
@@ -3195,9 +3253,6 @@ def durable_phase(torch, np, problem, card="cuda", root=DATA_ROOT) -> dict:
         for lease in leases.values():
             lease.stop_renewing()
     del stores
-
-    # ---- the durable fleet ------------------------------------------------ #
-    fleet_phase(torch, np, problem, keep, card, dirs["fleet"], launches_by)
     shutil.rmtree(root, ignore_errors=True)
     return launches_by
 
@@ -4029,6 +4084,135 @@ def process_fleet_phase(torch, np, problem, card="cuda", root=DATA_ROOT) -> dict
 
 
 
+# ---- phase 10's durable fleet and phase 11, in a process of their own ------- #
+
+#: the fleet process's data directories (inside the checkout, gitignored,
+#: removed at the end), and how long the main process waits for it once
+#: phase 10's durable tick is done
+FLEET_ROOT = os.path.join(HERE, "_smoke_fleet")
+FLEET_WAIT_S = 600.0
+
+
+def fleet_phases(torch, np, problem, card="cuda", root=FLEET_ROOT) -> dict:
+    """Phase 10's durable fleet (``fleet_phase``), then phase 11
+    (``process_fleet_phase``), each one's wall on its own line. They share
+    no store, directory or port with phases 9 and 10's durable tick, so
+    ``main`` runs them in a process of their own beside those
+    (``start_fleet_child``). Returns their card launches:
+    ``{"durable fleet": ..., "fleet": ...}``. ``card="cpu"`` rehearses both
+    on the CPU (pass a root outside the checkout)."""
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    keep = {d.id for d in problem[0][:-1]}
+    launches_by = {"fleet": {}}
+    t0 = time.perf_counter()
+    fleet_phase(torch, np, problem, keep, card, os.path.join(root, "durable-fleet"),
+                launches_by)
+    t1 = time.perf_counter()
+    log(f"phase 10 (the durable fleet): {t1 - t0:.1f} s wall")
+    log(f"process fleet on {card}")
+    proc = process_fleet_phase(torch, np, problem, card=card, root=root)
+    log(f"phase 11: {time.perf_counter() - t1:.1f} s wall")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"durable fleet": launches_by["fleet"], "fleet": proc,
+            "walls": {"phase 10 (the durable fleet)": t1 - t0,
+                      "phase 11": time.perf_counter() - t1}}
+
+
+def fleet_child(here, out_path, t0_wall, gate, card="cuda") -> None:
+    """The ``spawn`` process of ``start_fleet_child``: its imports and
+    config 3, then, once ``gate`` is set, ``fleet_phases`` on ``card`` (it
+    touches the card only after the gate: phases 8 and 9's readings of
+    the device are taken with no other process on the card), its lines on the shared output
+    tagged and on the script's clock (``t0_wall``: the wall time of the
+    script's start); writes ``{"ok": ..., the launches or "error"}`` to
+    ``out_path``."""
+    global _T0, _TAG
+    _T0 = time.perf_counter() - (time.time() - t0_wall)
+    _TAG = "[fleet process] "
+    sys.path.insert(0, here)
+    result = {"ok": False}
+    try:
+        import numpy as np
+        import torch
+
+        from evergreen_tpu_torch.ops import _build
+        from evergreen_tpu_torch.utils.benchgen import generate_problem
+
+        problem = generate_problem(*CONFIG3, seed=SEED)
+        t0 = time.perf_counter()
+        gate.wait()
+        log(f"imported and generated config 3, then waited {time.perf_counter() - t0:.1f} "
+            f"s for phase 9's profiled round")
+        if card == "cuda":
+            torch.cuda.set_device(0)
+            _build.build(("distro_stats", "segment_sum"))  # phase 1 built them: loads
+        result.update(fleet_phases(torch, np, problem, card=card), ok=True)
+    except BaseException:
+        import traceback
+
+        result["error"] = traceback.format_exc()
+        raise
+    finally:
+        with open(out_path, "w") as fh:
+            json.dump(result, fh)
+
+
+def start_fleet_child(card="cuda") -> dict:
+    """``fleet_child`` started in a ``spawn`` process (not daemonic: phase
+    11 starts its CPU twin in a process of its own), with the event it
+    waits for before it touches the card (``"gate"``: ``main`` sets it when
+    phase 8, which times a kernel, and phase 9's profiled round are done);
+    ``card="cpu"`` rehearses it on the CPU."""
+    import multiprocessing
+    import tempfile
+
+    ctx = multiprocessing.get_context("spawn")
+    out_path = os.path.join(tempfile.mkdtemp(prefix="evg-chip-fleet-"), "result.json")
+    t0_wall = time.time() - (time.perf_counter() - _T0)
+    gate = ctx.Event()
+    proc = ctx.Process(target=fleet_child, args=(HERE, out_path, t0_wall, gate, card))
+    proc.start()
+    return {"proc": proc, "gate": gate, "out": out_path, "t0": time.perf_counter()}
+
+
+def stop_fleet_child(child) -> None:
+    """End the fleet process if it still runs (a failure elsewhere)."""
+    proc = child["proc"]
+    if proc.is_alive():
+        proc.terminate()
+        proc.join(30)
+    if proc.is_alive():
+        proc.kill()
+        proc.join(30)
+
+
+def join_fleet_child(child) -> dict:
+    """Wait for the fleet process; its result, or the failure it wrote."""
+    import shutil
+
+    proc = child["proc"]
+    t0 = time.perf_counter()
+    proc.join(FLEET_WAIT_S)
+    waited = time.perf_counter() - t0
+    if proc.is_alive():
+        stop_fleet_child(child)
+    result = {}
+    if os.path.exists(child["out"]):
+        with open(child["out"]) as fh:
+            result = json.load(fh)
+    shutil.rmtree(os.path.dirname(child["out"]), ignore_errors=True)
+    check(proc.exitcode == 0 and result.get("ok"),
+          f"the fleet process (phase 10's durable fleet, phase 11) ended with exit code "
+          f"{proc.exitcode}: {result.get('error', '')[-3000:]}")
+    log(f"the fleet process (phase 10's durable fleet, phase 11) ended "
+        f"{time.perf_counter() - child['t0']:.1f} s after its start, beside phases 9, 6, 7 "
+        f"and 10; waited {waited:.1f} s for it here")
+    return result
+
+
 #: phase 12: the job plane. Cron rounds of (a) the card's environment and
 #: (b) the CPU's, each on a copy of one seeded durable directory; the
 #: agent pass follows round ``CRON_AGENT_AFTER`` (1-based): over HTTP
@@ -4441,11 +4625,16 @@ def ingest_checks(envs, r, ingest, runs, distro_ids, task_queue) -> None:
     rows = queue_rows(a.store)
     tasks = a.store.collection("tasks")
 
+    live = {d["_id"] for d in a.store.collection("distros").find()}
+
     def waiting(pred):
-        """Ids of the activated undispatched tasks ``pred`` takes, and
-        those of them not queued."""
+        """Ids of the activated undispatched tasks ``pred`` takes on a
+        distro that exists (the admin round deletes one: its tasks are
+        planned by no tick, ``admin_checks``), and those of them not
+        queued."""
         ids = sorted(d["_id"] for d in tasks.find(
-            lambda d: pred(d) and d["activated"] and d["status"] == "undispatched"))
+            lambda d: pred(d) and d["activated"] and d["status"] == "undispatched"
+            and d["distro_id"] in live))
         return ids, [t for t in ids if t not in rows]
 
     # the batchtime builds and the generated tasks activated after round 3's
@@ -4583,6 +4772,8 @@ def seed_cron_dir(problem, data_dir) -> tuple:
         tasks.update(tid, {"display_name": "boom" if i % CRON_BOOM_EVERY == 1 else "echo"})
     src.collection("parser_projects").insert(dict(json.loads(json.dumps(CRON_PROJECT)),
                                                  _id=version))
+    src.collection("project_vars").insert(dict(json.loads(json.dumps(ADMIN_VARS)),
+                                               _id=INGEST_PROJECT_ID))
     free = sorted(d["_id"] for d in hosts.find(
         lambda d: d["distro_id"] == first and d["status"] == "running"
         and not d["running_task"]))
@@ -5091,6 +5282,217 @@ def spawn_sequence(envs, enter, leave, now, calls, ids, label) -> dict:
     return ms
 
 
+#: phase 12's admin round, before round ``ADMIN_ROUND``'s ticks:
+#: the pushed version aborted, then restarted; a distro with queued tasks
+#: drained and deleted (the last whose hosts run no task, past the
+#: distros the reads, the spawn host, the generator, the patch and the
+#: merge group use); the fleet intent budget cut to ``ADMIN_BUDGET`` (from
+#: phase 6's ``PLAN_BUDGET``) and one task limit set; a failed task of the
+#: seeded version annotated, its project's reliability read; the pushed
+#: project copied (``ADMIN_COPY``) with its variables (``ADMIN_VARS``, one
+#: private), seeded by ``seed_cron_dir``
+ADMIN_ROUND = INGEST_MORE_ROUND
+ADMIN_BUDGET = 200
+ADMIN_LIMITS = {"max_task_execution": 5}
+ADMIN_COPY = f"{INGEST_PROJECT_ID}-copy"
+ADMIN_VARS = {"vars": {"region": "smoke-1", "deploy_token": "t0k3n"},
+              "private_vars": {"deploy_token": True}}
+
+
+def admin_sequence(envs, enter, leave, now, ingest, seeded, doomed) -> dict:
+    """Phase 12's admin round before the ticks of round ``ADMIN_ROUND``,
+    through each environment's ``RestApi.handle`` with the API user's
+    (superuser) key inside the round's pinned clock, in the same order on
+    (a) and (b), both checking credentials: ``abort`` then ``restart`` of the pushed version; the
+    delete of distro ``doomed``, refused (409) while its hosts live, then
+    its hosts drained (terminated in the store and in the mock cloud, as
+    an operator's drain leaves them) and the delete answered; ``set_admin``
+    of ``capacity`` and ``task_limits``; a failed task of the seeded
+    version annotated; the pushed project copied with its variables, and
+    a dry run of the variables' copy with the private one. Then, each
+    follower caught up, the reads: the annotation, the seeded project's
+    reliability over its ``echo`` and ``boom`` tasks, the copy's events
+    and the settings. Holds each answer as expected and (a)'s equal to
+    (b)'s; returns (a)'s answers and each environment's ms a request."""
+    from evergreen_tpu_torch.cloud.mock import MockCloudManager
+
+    hdr = {"api-user": INGEST_USER[0], "api-key": INGEST_USER[1]}
+    a = envs["a"]
+    tasks = a.store.collection("tasks")
+    failed = sorted(d["_id"] for d in tasks.find(
+        lambda d: d["version"] == seeded and d["status"] == "failed"))
+    check(failed, f"admin: no failed task in the seeded version {seeded}")
+    project = tasks.get(failed[0])["project"]
+    busy = [d["_id"] for d in a.store.collection("hosts").find(
+        lambda d: d["distro_id"] == doomed and d["running_task"])]
+    check(not busy, f"admin: hosts of {doomed} run tasks: {busy}")
+    refused = (
+        ("POST", f"/rest/v2/versions/{ingest['version']}/abort", {}, 200),
+        ("POST", f"/rest/v2/versions/{ingest['version']}/restart", {}, 200),
+        ("DELETE", f"/rest/v2/distros/{doomed}", {}, 409))
+    writes = (
+        ("DELETE", f"/rest/v2/distros/{doomed}", {}, 200),
+        ("POST", "/rest/v2/admin/settings", {
+            "capacity": {"fleet_intent_budget": ADMIN_BUDGET},
+            "task_limits": dict(ADMIN_LIMITS)}, 200),
+        ("PUT", f"/rest/v2/tasks/{failed[0]}/annotation", {
+            "note": "fails on purpose", "user": INGEST_USER[0],
+            "issues": [{"url": "https://issues.example/SMOKE-1", "issue_key": "SMOKE-1"}]},
+         200),
+        ("POST", f"/rest/v2/projects/{INGEST_PROJECT_ID}/copy", {"new_project": ADMIN_COPY},
+         200),
+        ("POST", f"/rest/v2/projects/{INGEST_PROJECT_ID}/copy/variables", {
+            "copy_to": ADMIN_COPY, "include_private": True, "dry_run": True}, 200))
+    reads = (
+        ("GET", f"/rest/v2/tasks/{failed[0]}/annotations", {}, 200),
+        ("GET", f"/rest/v2/projects/{project}/task_reliability", {"tasks": "echo,boom"}, 200),
+        ("GET", f"/rest/v2/projects/{ADMIN_COPY}/events", {}, 200),
+        ("GET", "/rest/v2/admin/settings", {}, 200))
+    got, ms = {}, {}
+
+    def drain(env):
+        hosts = env.store.collection("hosts")
+        for d in hosts.find(lambda d: d["distro_id"] == doomed
+                            and d["status"] != "terminated"):
+            hosts.update(d["_id"], {"status": "terminated"})
+            if d.get("external_id") in MockCloudManager.instances:
+                MockCloudManager.instances[d["external_id"]] = "terminated"
+
+    def send(key, env, calls):
+        for method, path, body, want in calls:
+            t0 = time.perf_counter()
+            st, out = env.api.handle(method, path, dict(body), dict(hdr))
+            ms[key].append((time.perf_counter() - t0) * 1e3)
+            check(st == want, f"admin ({key}): {method} {path} answered {st}, expected "
+                  f"{want}: {str(out)[:300]}")
+            got[key].append(json.loads(json.dumps(out)))
+
+    # (b)'s API checks credentials for the round too, so that both record
+    # the superuser as the actor (the events of a copy name it)
+    auth = {key: env.api.require_auth for key, env in envs.items()}
+    try:
+        for key, env in envs.items():
+            env.api.require_auth = True
+            got[key], ms[key] = [], []
+            enter(key, now)
+            try:
+                send(key, env, refused)
+                drain(env)
+                send(key, env, writes)
+            finally:
+                leave()
+        caught = catch_up(envs, "admin")
+        for key, env in envs.items():
+            enter(key, now)
+            try:
+                send(key, env, reads)
+            finally:
+                leave()
+    finally:
+        for key, env in envs.items():
+            env.api.require_auth = auth[key]
+    diff = [k for k, (x, y) in enumerate(zip(got["a"], got["b"])) if x != y]
+    check(not diff and len(got["a"]) == len(got["b"]),
+          f"admin: the answers of (a) and (b) differ at {diff}: "
+          f"{str([got['a'][k] for k in diff])[:400]} against "
+          f"{str([got['b'][k] for k in diff])[:400]}")
+    (abort, restart, refused, deleted, settings, note, copied, preview, ann, rel, events,
+     admin) = got["a"]
+    gen = [d["_id"] for d in tasks.find(lambda d: d["version"] == ingest["version"]
+                                        and d["display_name"] == "generate-extra")]
+    check(abort["deactivated"] and restart == {"restarted": gen},
+          f"admin: the abort deactivated {len(abort['deactivated'])}, the restart "
+          f"{restart} (the generator {gen})")
+    check("live host" in refused["error"] and deleted == {"ok": True}
+          and settings == {"updated": ["capacity", "task_limits"]},
+          f"admin: the delete {refused} then {deleted}, the settings {settings}")
+    check(ann["note"] == note["note"] == "fails on purpose"
+          and [i["issue_key"] for i in ann["issues"]] == ["SMOKE-1"],
+          f"admin: the annotation read back {ann}")
+    finished = [d for d in tasks.find(lambda d: d["project"] == project
+                                      and d["display_name"] in ("echo", "boom")
+                                      and d["status"] in ("success", "failed"))]
+    check(rel and sum(g["num_total"] for g in rel) == len(finished)
+          and sum(g["num_failed"] for g in rel)
+          == sum(1 for d in finished if d["status"] == "failed"),
+          f"admin: reliability {rel} over {len(finished)} finished tasks")
+    check(copied["_id"] == ADMIN_COPY and copied["enabled"] is False
+          and preview == {"vars": {"region": "smoke-1", "deploy_token": ""},
+                          "dry_run": True}
+          and [e["event_type"] for e in events["events"]] == ["PROJECT_COPIED"]
+          and admin["capacity"]["fleet_intent_budget"] == ADMIN_BUDGET
+          and all(admin["task_limits"][k] == v for k, v in ADMIN_LIMITS.items()),
+          f"admin: the copy {copied}, its variables' preview {preview}, its events "
+          f"{events}, the settings read back")
+    vars_b = envs["b"].store.collection("project_vars").get(ADMIN_COPY)
+    check(a.store.collection("project_vars").get(ADMIN_COPY) == vars_b
+          and vars_b["vars"] == {"region": "smoke-1"},
+          f"admin: the copy's variables {vars_b}")
+    return {"abort": abort, "restart": restart, "rel": rel, "ms": ms, "caught": caught}
+
+
+def admin_checks(envs, r, doomed, before, records, np) -> str:
+    """After round ``ADMIN_ROUND``'s ticks, whose documents in (a) and (b)
+    are already held equal: the card's tick planned one distro fewer (its
+    tick span's ``n_distros``, the capacity program's eligible distros), no
+    queue document of ``doomed`` and no queue row of its tasks anywhere;
+    the capacity targets within the new budget (the capacity provenance's
+    budget and new hosts, below the round before's budget), equal in (a)
+    and (b); the card plane's snapshot of the tick (``records``: its
+    ``sync`` calls) canonically equal to a cold ``build_snapshot`` of the
+    same gather, without ``doomed``, and its mirror equal to the host
+    truth. Returns a line for the log."""
+    from evergreen_tpu_torch.scheduler import resident
+    from evergreen_tpu_torch.scheduler.snapshot import build_snapshot
+
+    hdr = {"api-user": INGEST_USER[0], "api-key": INGEST_USER[1]}
+    a = envs["a"]
+    plane = resident.peek_resident_plane(a.store)
+    spans = [d["attributes"] for d in a.store.collection("spans").find()
+             if d["name"] == "tick"]
+    check(spans[-1]["n_distros"] == before["n_distros"] - 1,
+          f"round {r}: the tick planned {spans[-1]['n_distros']} distros, "
+          f"{before['n_distros']} before the delete")
+    doomed_tasks = {d["_id"] for d in a.store.collection("tasks").find(
+        lambda d: d["distro_id"] == doomed)}
+    for key, env in envs.items():
+        for name in ("task_queues", "task_secondary_queues"):
+            check(env.store.collection(name).get(doomed) is None,
+                  f"round {r} ({key}): {name} still holds {doomed}")
+        queued = doomed_tasks & set(queue_rows(env.store))
+        check(not queued, f"round {r} ({key}): {len(queued)} tasks of {doomed} queued")
+    fleets = {}
+    for key, env in envs.items():
+        st, prov = env.api.handle("GET", "/rest/v2/admin/capacity", {"limit": 0}, dict(hdr))
+        check(st == 200, f"round {r} ({key}): admin/capacity answered {st}")
+        fleets[key] = prov["fleet"]
+    fleet = fleets["a"]
+    check(fleets["a"] == fleets["b"], f"round {r}: the capacity fleets differ: {fleets}")
+    check(fleet["budget"] <= ADMIN_BUDGET < before["fleet"]["budget"]
+          and fleet["new_hosts"] <= ADMIN_BUDGET
+          and fleet["n_distros"] == before["fleet"]["n_distros"] - 1,
+          f"round {r}: capacity fleet {fleet}, the round before's {before['fleet']}")
+    mine = [(args, snap) for plane_, args, snap in records if plane_ is plane]
+    check(len(mine) == 1, f"round {r}: {len(mine)} syncs of (a)'s plane")
+    args, snap = mine[0]
+    cold = build_snapshot(*args[:5], args[5])
+    check(doomed not in snap.distro_ids and len(snap.distro_ids) == len(cold.distro_ids),
+          f"round {r}: the plane's snapshot holds {len(snap.distro_ids)} distros")
+    check(resident.canonicalize(snap) == resident.canonicalize(cold),
+          f"round {r}: the card plane's snapshot differs from a cold build")
+    if plane.device.type == "cuda":
+        check(mirror_matches_truth(np, snap),
+              f"round {r}: the card's mirror differs from the host truth")
+    mirror = plane.device.type == "cuda"
+    return (f"{doomed} gone from the tick ({spans[-1]['n_distros']} distros planned, "
+            f"{before['n_distros']} before), from the queues and the plane (canonical == "
+            f"a cold build{', the mirror == the host truth' if mirror else ''}; resident "
+            f"{ {k: v for k, v in plane.stats().items() if not k.startswith('mirror')} }); "
+            f"the capacity fleet (a) = (b): budget {fleet['budget']} (the round before "
+            f"{before['fleet']['budget']}), new hosts {fleet['new_hosts']}, "
+            f"{fleet['n_distros']} distros (before {before['fleet']['n_distros']})")
+
+
 def read_stats(ms) -> str:
     """p50 / max of one environment's read ms, and its slowest path."""
     return (f"{ms[len(ms) // 2][0]:.2f} / {ms[-1][0]:.2f} ({ms[-1][1].split('/rest/v2/')[-1]}), "
@@ -5361,6 +5763,26 @@ def cron_phase(torch, np, problem, card="cuda", root=DATA_ROOT, on_seed=None) ->
                 spawn_ms = spawn_sequence(envs, enter, leave, now, SPAWN_OPEN, spawn_ids,
                                           "open")
                 same_cron_docs(a.store, b.store, "the spawn host and its volume")
+            if r == ADMIN_ROUND:
+                # the last distro with queued tasks whose hosts run none, of
+                # those the round's other steps leave alone
+                others = set(distro_ids[:max(READ_DISTROS, 2 + INGEST_PATCH_VARIANTS
+                                             + INGEST_MERGE_VARIANTS)])
+                busy = {d["distro_id"] for d in a.store.collection("hosts").find()
+                        if d["running_task"]}
+                queued = {d for d, _, _ in queue_rows(a.store).values()}
+                doomed = next((d for d in reversed(distro_ids)
+                               if d in queued and d not in others | busy), None)
+                check(doomed is not None, "admin: no distro with queued tasks and idle "
+                      "hosts to delete")
+                hdr = {"api-user": INGEST_USER[0], "api-key": INGEST_USER[1]}
+                admin_before = {
+                    "n_distros": [d["attributes"] for d in a.store.collection("spans").find()
+                                  if d["name"] == "tick"][-1]["n_distros"],
+                    "fleet": a.api.handle("GET", "/rest/v2/admin/capacity", {"limit": 0},
+                                          dict(hdr))[1]["fleet"]}
+                admin = admin_sequence(envs, enter, leave, now, ingest, seeded, doomed)
+                same_cron_docs(a.store, b.store, "the admin round")
             deliveries = {}
             for key, env in envs.items():
                 events0 = len(env.store.collection("events"))
@@ -5368,6 +5790,9 @@ def cron_phase(torch, np, problem, card="cuda", root=DATA_ROOT, on_seed=None) ->
                 posts0 = len(sink.posts)
                 enter(key, now)
                 reset_launches(*fused)
+                if r == ADMIN_ROUND and key == "a":
+                    # the card plane's sync of this tick, for admin_checks
+                    syncs, undo_syncs = service_tick_inputs(resident.ResidentPlane)
                 t0 = time.perf_counter()
                 try:
                     n_jobs[key] += env.cron_runner.tick(force=True)
@@ -5375,6 +5800,8 @@ def cron_phase(torch, np, problem, card="cuda", root=DATA_ROOT, on_seed=None) ->
                           f"did not finish")
                 finally:
                     leave()
+                    if r == ADMIN_ROUND and key == "a":
+                        undo_syncs()
                 walls[key] = (time.perf_counter() - t0) * 1e3
                 deliveries[key] = sink_deliveries(sink.posts[posts0:], f"round {label} ({key})")
                 got = read_launches(*fused)
@@ -5463,6 +5890,23 @@ def cron_phase(torch, np, problem, card="cuda", root=DATA_ROOT, on_seed=None) ->
                     f"and the volume gone; ms a request (a) "
                     f"{', '.join(f'{x:.1f}' for x in spawn_ms['a'])}, (b) "
                     f"{', '.join(f'{x:.1f}' for x in spawn_ms['b'])}")
+            if r == ADMIN_ROUND:
+                held = admin_checks(envs, label, doomed, admin_before, syncs, np)
+                log(f"cron round {label} admin: before the ticks, through RestApi.handle "
+                    f"in (a) and (b) with the superuser's key, the pushed version aborted "
+                    f"({len(admin['abort']['deactivated'])} tasks deactivated, "
+                    f"{len(admin['abort']['aborted'])} in flight flagged) and restarted "
+                    f"({admin['restart']['restarted']}), {doomed} refused 409 with live "
+                    f"hosts, drained and deleted, the capacity budget set to {ADMIN_BUDGET} "
+                    f"and task limits {ADMIN_LIMITS}, a failed task annotated, "
+                    f"{INGEST_PROJECT_ID} copied to {ADMIN_COPY} with its variables (a dry "
+                    f"run of the private one), then read back after the catch-up "
+                    f"({admin['caught']['a'][0]} / {admin['caught']['b'][0]} records): the "
+                    f"annotation, {len(admin['rel'])} reliability groups, the copy's event, "
+                    f"the settings; every answer (a) = (b); ms a request (a) "
+                    f"{', '.join(f'{x:.1f}' for x in admin['ms']['a'])}, (b) "
+                    f"{', '.join(f'{x:.1f}' for x in admin['ms']['b'])}")
+                log(f"cron round {label} admin, after the ticks: {held}")
             if r == 1:
                 READINGS["cron first tick ms"] = runs["a"]["scheduler-tick"]
             READINGS["cron host-create ms"] = runs["a"]["host-create"]
@@ -5775,6 +6219,12 @@ ENTRY_SUB = {"id": "entry-sub", "resource_type": "PATCH", "trigger": "outcome",
 #: the naive user phase 13's ``login`` process logs in as (the
 #: ``auth`` section of its directory)
 ENTRY_LOGIN = ("entry-user", "entry-password")
+#: phase 13's API user without the superuser scope, whose admin
+#: write is refused, and the service flag the superuser's ``admin``
+#: command sets through the replica: the service's tick then plans with
+#: no intent hosts and no capacity page (``units/crons.py``)
+ENTRY_VIEWER = ("entry-viewer", "entry-viewer-api-key")
+ENTRY_FLAG = "host_allocator_disabled"
 #: the test results ``unit-tests`` attaches: its results file's, then its
 #: xunit file's, in the order the tests route lists them
 ENTRY_RESULTS = [
@@ -5947,6 +6397,7 @@ def prepare_entry_dir(seed_dir, data_dir, sink_url="", n_agents=ENTRY_AGENTS) ->
     as the GitHub API's. Returns those hosts' (id, secret) pairs, the
     file's path, the bucket's and the first agent's distro."""
     from evergreen_tpu_torch.ingestion.repotracker import ProjectRef
+    from evergreen_tpu_torch.models.user import User
     from evergreen_tpu_torch.settings import AuthConfig, NotifyConfig, ReadPathConfig
     from evergreen_tpu_torch.storage.durable import DurableStore
     from evergreen_tpu_torch.utils.benchgen import NOW
@@ -5987,6 +6438,7 @@ def prepare_entry_dir(seed_dir, data_dir, sink_url="", n_agents=ENTRY_AGENTS) ->
     ReadPathConfig(longpoll_max_wait_s=ENTRY_WAIT_S).set(dst)
     AuthConfig(preferred_type="naive", naive_users=[
         {"username": ENTRY_LOGIN[0], "password": ENTRY_LOGIN[1]}]).set(dst)
+    dst.collection("users").insert(User(id=ENTRY_VIEWER[0], api_key=ENTRY_VIEWER[1]).to_doc())
     dst.end_tick()
     dst.close()
     return {"agents": agents, "patch_file": patch_file, "bucket": bucket, "distro": distro}
@@ -6594,6 +7046,101 @@ def entry_replica(entry, base) -> dict:
     return {"boot_s": boot_s, "forward_ms": fwd}
 
 
+def entry_admin(entry, base) -> dict:
+    """The ``version`` and ``admin`` commands as processes (``-X
+    importtime``), all three at once: ``version`` prints the package's
+    line; ``admin set-flag`` aimed at the replica with ``ENTRY_VIEWER``'s
+    key prints the 403 answer (and that user's read of the settings is
+    refused 403); with the superuser's key it sets
+    ``service_flags.ENTRY_FLAG``, a write the replica forwards to the
+    service, read back from the replica at once and from the service's own
+    settings. None imports ``torch``. Returns the service's tick and
+    capacity-phase counts (``/metrics``) just before the write."""
+    check(entry.replica_listening.wait(ENTRY_BOOT_S), "entry: the replica printed no "
+          "listening line")
+    if entry.replica_error is not None:
+        raise entry.replica_error
+    rbase = entry.replica_base
+    samples = parse_exposition(http_text(base, "/metrics")[2])
+    at_write = {"ticks": series_sum(samples, "scheduler_ticks_total"),
+                "capacity": series(samples, "scheduler_tick_phase_duration_ms_count",
+                                   phase="capacity")}
+    check(at_write["capacity"] >= 1, f"entry: the service's ticks ran no capacity phase "
+          f"before the flag: {at_write}")
+
+    def cli(*argv):
+        return subprocess.Popen(
+            [sys.executable, "-X", "importtime", "-m", "evergreen_tpu_torch", *argv],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=HERE,
+            env=dict(os.environ, PYTHONPATH=HERE))
+
+    t0 = time.perf_counter()
+    procs = {
+        "version": cli("version"),
+        "denied": cli("admin", "set-flag", "--flag", ENTRY_FLAG, "--api-server", rbase,
+                      "--api-user", ENTRY_VIEWER[0], "--api-key", ENTRY_VIEWER[1]),
+        "set": cli("admin", "set-flag", "--flag", ENTRY_FLAG, "--api-server", rbase,
+                   "--api-user", INGEST_USER[0], "--api-key", INGEST_USER[1]),
+    }
+    out = {}
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=120)
+        check(proc.returncode == 0, f"entry: the {name} command exited {proc.returncode}: "
+              f"{stderr[-500:]}")
+        check_no_torch(stderr, f"the {name} command")
+        out[name] = stdout
+    wall_s = time.perf_counter() - t0
+    from evergreen_tpu_torch import __version__
+
+    check(out["version"] == f"evergreen-tpu {__version__}\n",
+          f"entry: version printed {out['version']!r}")
+    check(json.loads(out["denied"]) == {"error": "admin scope required"},
+          f"entry: the viewer's admin write answered {out['denied']!r}")
+    check(json.loads(out["set"]) == {"updated": ["service_flags"]},
+          f"entry: the superuser's admin write answered {out['set']!r}")
+    viewer = {"Api-User": ENTRY_VIEWER[0], "Api-Key": ENTRY_VIEWER[1]}
+    st, got = http_json(rbase, "GET", "/rest/v2/admin/settings", headers=viewer)
+    check((st, got) == (403, {"error": "superuser scope required"}),
+          f"entry: the viewer's read of admin/settings answered {st} {str(got)[:200]}")
+    flags = {}
+    for who, url in (("replica", rbase), ("service", base)):
+        st, got = http_json(url, "GET", "/rest/v2/admin/settings", headers=api_headers())
+        check(st == 200, f"entry: admin/settings on the {who} answered {st}")
+        flags[who] = got["service_flags"][ENTRY_FLAG]
+    check(flags == {"replica": True, "service": True},
+          f"entry: {ENTRY_FLAG} read back {flags}")
+    log(f"entry: version, admin set-flag as {ENTRY_VIEWER[0]} and as {INGEST_USER[0]}, "
+        f"three processes aimed at the replica in {wall_s:.1f} s, none importing torch: "
+        f"{out['version'].strip()!r}; the viewer's write 403 ({out['denied'].strip()}); "
+        f"the superuser's forwarded ({out['set'].strip()}), {ENTRY_FLAG} read back on the "
+        f"replica and the service; the service had run {at_write['ticks']:.0f} ticks, "
+        f"{at_write['capacity']:.0f} with the capacity phase")
+    return at_write
+
+
+def entry_admin_read(base, at_write) -> int:
+    """The service's ticks after ``entry_admin``'s write: once at least
+    one tick has run without the capacity phase since the write (the tick
+    in flight at the write may still carry the page), its tick job read
+    ``ENTRY_FLAG``. Returns the count of ticks that ran the capacity
+    phase, every one before the flag."""
+    def read():
+        samples = parse_exposition(http_text(base, "/metrics")[2])
+        return (series_sum(samples, "scheduler_ticks_total"),
+                series(samples, "scheduler_tick_phase_duration_ms_count", phase="capacity"))
+
+    t0 = time.perf_counter()
+    ticks, cap = eventually(
+        read, lambda got: got[0] - at_write["ticks"] > got[1] - at_write["capacity"],
+        "a tick without the capacity phase after the flag", timeout_s=60.0)
+    check(cap - at_write["capacity"] <= 1, f"entry: {cap - at_write['capacity']:.0f} ticks "
+          f"ran the capacity phase after {ENTRY_FLAG} was set")
+    log(f"entry: after {ENTRY_FLAG}, the service ran {ticks - at_write['ticks']:.0f} ticks, "
+        f"{cap - at_write['capacity']:.0f} with the capacity phase (the one in flight at "
+        f"the write); waited {time.perf_counter() - t0:.1f} s for it here")
+    return int(cap)
+
+
 def entry_phase(torch, entry) -> dict:
     """Phase 13: the deployed entry points. The single-store service
     (``python -m evergreen_tpu_torch service --data-dir D --port 0
@@ -6649,6 +7196,9 @@ def entry_phase(torch, entry) -> dict:
                           if x.startswith("completed task")]
         check(completed[hid], f"entry: agent {hid} completed no task: {out[-300:]}")
     agents_s = time.perf_counter() - t0
+    # the flag after the agents, whose work the service's ticks plan
+    # with the capacity page; the tick it reads comes during the reads
+    at_write = entry_admin(entry, base)
     entry_patch_done(base, patch_ids, patch_id)
     hooked = {t: http_json(base, "GET", f"/rest/v2/tasks/{t}", headers=api_headers())[1]
               .get("status") for t in hook_ids}
@@ -6656,6 +7206,7 @@ def entry_phase(torch, entry) -> dict:
     entry_user_loop(entry, base, patch_ids)
     entry_operator(base)
     entry_replica(entry, base)
+    with_page = entry_admin_read(base, at_write)
     t0 = time.perf_counter()
     entry.proc.send_signal(signal.SIGTERM)
     rc = entry.proc.wait(timeout=120)
@@ -6688,16 +7239,21 @@ def entry_phase(torch, entry) -> dict:
     launches = {}
     if on_card:
         launches = json.loads(entry.line("kernel launches: ")[len("kernel launches: "):])
-        want = expected_launches([CapacityConfig().iterations] * len(ticks))
+        # the ticks after the flag solved without the capacity page
+        check(0 < with_page < len(ticks), f"entry: {with_page} of {len(ticks)} ticks "
+              f"ran the capacity phase")
+        want = expected_launches([CapacityConfig().iterations] * with_page
+                                 + [0] * (len(ticks) - with_page))
         check(launches == want, f"entry: the service's launches {launches}, expected "
-              f"{want} for {len(ticks)} ticks")
+              f"{want} for {len(ticks)} ticks, {with_page} with the capacity page")
     log(f"entry: {len(procs)} agent processes completed "
         f"{sum(map(len, completed.values()))} tasks in {agents_s:.1f} s "
         f"({', '.join(f'{h} {len(t)}' for h, t in completed.items())}), none imported "
         f"torch or the probe; SIGTERM drained the service in {drain_s:.1f} s, exit 0, "
         f"its lease released; reopened in {reopen_s:.1f} s, the directory holds their "
         f"ends and {len(ticks)} ticks, each planned by the card, not degraded; launches "
-        f"{launches} (exact for {len(ticks)} solves)")
+        f"{launches} (exact for {len(ticks)} solves, {with_page} with the capacity "
+        f"page)")
     return launches
 
 
@@ -6823,10 +7379,13 @@ def main() -> int:
     torch.cuda.set_device(dev)
     t_start = last = time.perf_counter()
 
+    walls = {}
+
     def phase_done(name):
         """Log the wall seconds of the phase that just ended."""
         nonlocal last
         now = time.perf_counter()
+        walls[name] = now - last
         log(f"{name}: {now - last:.1f} s wall ({now - t_start:.1f} s since the card "
             f"was set)")
         last = now
@@ -7096,40 +7655,58 @@ def main() -> int:
     mirror_phase(torch, np, problems["seed0"])
     phase_done("phase 5")
 
-    # ---- 6. the tick's planning half --------------------------------------- #
-    planning_phase(torch, np)
-    phase_done("phase 6")
+    # ---- 10's durable fleet and 11, the process fleet, in their process ----- #
+    # (beside the rest of phase 9, phases 6 and 7 and phase 10's durable
+    # tick, with which they share no store, directory or port; the
+    # process starts now, and its imports overlap phase 8, but it touches
+    # the card only after phase 8, which times a kernel, and phase 9's
+    # profiled round: phases 6 and 7, which read no device time, wait
+    # until then, so that the main process has work beside it)
+    child = start_fleet_child()
+    try:
+        # ---- 8. the service's tick ----------------------------------------- #
+        service = service_phase(torch, np, problems["seed0"], sm_mhz)
+        phase_done("phase 8")
 
-    # ---- 7. the whole tick ------------------------------------------------- #
-    # (its two solve ticks again on fresh stores with the CPU's store
-    # ticked first, a check of the phase times' order, were cut when the
-    # loop of phase 8 needed the time: tick_phase(..., card_first=False))
-    tick_launches = tick_phase(torch, np, problems["seed0"], ticks=PHASE7_TICKS)
-    phase_done("phase 7")
+        # ---- 9. the sharded plane ------------------------------------------ #
+        # (the fleet process touches the card once its profiled round,
+        # which reads the device's busy time and idle share, is done)
+        log(f"sharded plane on {smi}")
+        sharded = sharded_phase(torch, np, problems["seed0"],
+                                after_profile=child["gate"].set)
+        child["gate"].set()
+        phase_done("phase 9")
 
-    # ---- 8. the service's tick -------------------------------------------- #
-    service = service_phase(torch, np, problems["seed0"], sm_mhz)
-    phase_done("phase 8")
+        # ---- 6. the tick's planning half ----------------------------------- #
+        planning_phase(torch, np)
+        phase_done("phase 6")
 
-    # ---- 9. the sharded plane ---------------------------------------------- #
-    log(f"sharded plane on {smi}")
-    sharded = sharded_phase(torch, np, problems["seed0"])
-    phase_done("phase 9")
+        # ---- 7. the whole tick --------------------------------------------- #
+        # (its two solve ticks again on fresh stores with the CPU's store
+        # ticked first, a check of the phase times' order, were cut when the
+        # loop of phase 8 needed the time: tick_phase(..., card_first=False))
+        with untuned_gc():
+            tick_launches = tick_phase(torch, np, problems["seed0"], ticks=PHASE7_TICKS)
+        phase_done("phase 7")
 
-    # ---- 10. the durable service tick and the durable fleet ----------------- #
-    log(f"durable tick on {smi}")
-    durable = durable_phase(torch, np, problems["seed0"])
-    phase_done("phase 10")
-
-    # ---- 11. the process-per-shard fleet ------------------------------------ #
-    log(f"process fleet on {smi}")
-    proc = process_fleet_phase(torch, np, problems["seed0"])
-    phase_done("phase 11")
+        # ---- 10. the durable service tick ---------------------------------- #
+        log(f"durable tick on {smi}")
+        durable = durable_phase(torch, np, problems["seed0"])
+        phase_done("phase 10 (the durable tick)")
+        fleet = join_fleet_child(child)
+        phase_done("the wait for the fleet process")
+    finally:
+        stop_fleet_child(child)
+    walls.update(fleet["walls"])
+    durable["fleet"] = fleet["durable fleet"]
+    proc = fleet["fleet"]
 
     # ---- 12. the job plane and the REST agent surface; 13. the entry points - #
     cron, ingest, rest = entry_phases(torch, np, problems["seed0"], smi, phase_done)
 
     # ---- result ------------------------------------------------------------ #
+    log("phase walls (s; the fleet process's beside phases 9, 6, 7 and 10): "
+        + json.dumps({k: round(v, 1) for k, v in walls.items()}))
     left = live_children()
     check(not left, f"processes this run started are still running: {left}")
     # launches: phase 7's ticks (card first), phase 8's card stores, phase

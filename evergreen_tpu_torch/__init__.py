@@ -16,3 +16,5 @@ Entry points (``ops.solve.run_solve_packed``,
 ``python -m evergreen_tpu_torch solver``) run on the CUDA card unless the
 caller passes ``device="cpu"``.
 """
+
+__version__ = "0.1.0"

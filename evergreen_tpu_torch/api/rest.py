@@ -76,6 +76,20 @@ Ported:
   follower's ``follower_staleness_ms``;
 - the login routes (``/login``, ``/login/redirect``, ``/login/callback``,
   ``/logout``) and the user's SSH keys (``/rest/v2/keys``);
+- the rest of the user and admin routes: a version's ``restart`` and
+  ``abort`` (``units/task_jobs.py``), a task's ``annotations`` and
+  ``annotation`` (``models/annotations.py``), the admin settings over
+  every config section (``get_admin``, ``set_admin``: superuser only,
+  through ``_require_superuser`` and ``_ADMIN_PATHS``), a distro's
+  ``DELETE`` (409 while a live host references it; its queues cleared),
+  a project's ``task_reliability``
+  (``models/reliability.py``), the permission routes (the catalog, every
+  user's roles, a user's GET, POST and DELETE, over ``models/user.py``'s
+  roles), a project's ``copy`` and ``copy/variables``
+  (``models/project_vars.py``) and its ``events``. None of them is a
+  mutating GET or a read-only POST, and none is cached, as in the JAX
+  package: a replica forwards the POSTs, the PUT and the DELETEs, and
+  serves the GETs from its own store;
 - the operator's surface, shed- and auth-exempt where JAX's is:
   ``admin/overload`` (the ladder's level, gauges, counters and shed
   totals), ``GET /metrics`` (the whole metrics registry in Prometheus
@@ -98,6 +112,12 @@ Ported:
 
 Departures from the JAX package:
 
+- ``GET /rest/v2/admin/settings`` answers 403 to an authenticated caller
+  without the superuser scope (``get_admin``). The sections hold the
+  service's credentials (the webhook and SNS secrets, ``naive_users``'
+  passwords, the OAuth client secrets, the Slack and Jira tokens, the UI
+  secret); the JAX package hands all of them to any authenticated user,
+  since its ``_ADMIN_PATHS`` gates only the writes;
 - a replica's forwarded write (``X-Evg-Forwarded``) on a durable store
   is answered once it is in the WAL (``_journaled``:
   ``DurableStore.drain``), and a forwarded read is served by the
@@ -116,9 +136,6 @@ Departures from the JAX package:
   does for an agent in process. The JAX package's HTTP agent sends
   neither and its route keeps neither, so a task run over HTTP there
   lists no tests and no artifacts;
-- the other route families (the admin settings, a distro's delete, task reliability, users' permissions, project copy
-  and events, annotations, GraphQL, the UI) are not ported: they answer
-  404;
 - ``serve``'s ``wsgiref`` handler writes no per-request access line to
   stderr (the sampled access log is ported).
 """
@@ -143,7 +160,7 @@ from ..models import host as host_mod
 from ..models import task as task_mod
 from ..models import version as version_mod
 from ..models.lifecycle import mark_task_started
-from ..settings import ServiceFlags
+from ..settings import ServiceFlags, all_sections, get_section
 from ..storage.replica import ReplicaReadOnly
 from ..storage.store import Store
 from ..units import task_jobs
@@ -1191,6 +1208,8 @@ class RestApi:
         r("GET", r"/rest/v2/versions", self.list_versions)
         r("GET", r"/rest/v2/versions/(?P<version>[^/]+)", self.get_version)
         r("GET", r"/rest/v2/versions/(?P<version>[^/]+)/tasks", self.version_tasks)
+        r("POST", r"/rest/v2/versions/(?P<version>[^/]+)/restart", self.restart_version)
+        r("POST", r"/rest/v2/versions/(?P<version>[^/]+)/abort", self.abort_version)
         r("GET", r"/rest/v2/builds/(?P<build>[^/]+)", self.get_build)
         r(
             "GET",
@@ -1220,11 +1239,15 @@ class RestApi:
         r("POST", r"/rest/v2/tasks/(?P<task>[^/]+)/select_tests",
           self.select_tests)
         r("GET", r"/rest/v2/tasks/(?P<task>[^/]+)/artifacts", self.task_artifacts)
+        r("GET", r"/rest/v2/tasks/(?P<task>[^/]+)/annotations", self.get_annotations)
+        r("PUT", r"/rest/v2/tasks/(?P<task>[^/]+)/annotation", self.put_annotation)
         r("POST", r"/rest/v2/artifacts/sign", self.sign_artifact)
 
-        # the operator's surface: the ladder, the Prometheus exposition,
-        # the LB probes and the trace/provenance/fleet views, all
-        # shed-exempt
+        # the admin settings over every config section, and the
+        # operator's surface: the ladder, the Prometheus exposition, the
+        # LB probes and the trace/provenance/fleet views, all shed-exempt
+        r("GET", r"/rest/v2/admin/settings", self.get_admin)
+        r("POST", r"/rest/v2/admin/settings", self.set_admin)
         r("GET", r"/rest/v2/admin/overload", self.get_overload)
         r("GET", r"/metrics", self.get_metrics)
         r("GET", r"/healthz", self.healthz)
@@ -1271,12 +1294,36 @@ class RestApi:
         r("GET", r"/rest/v2/subscriptions", self.list_subscriptions)
         r("DELETE", r"/rest/v2/subscriptions/(?P<sub>[^/]+)",
           self.delete_subscription)
+        r("DELETE", r"/rest/v2/distros/(?P<distro>[^/]+)", self.delete_distro)
         r("DELETE", r"/rest/v2/volumes/(?P<volume>[^/]+)", self.delete_volume)
         # log ring and stats samplers
         r("GET", r"/rest/v2/admin/log_lines", self.list_log_lines)
         r("GET", r"/rest/v2/stats/spans", self.list_spans)
         r("GET", r"/rest/v2/stats/hosts", self.host_stats)
         r("GET", r"/rest/v2/stats/system", self.system_stats)
+        # task reliability (reference rest/route/reliability.go)
+        r(
+            "GET",
+            r"/rest/v2/projects/(?P<project>[^/]+)/task_reliability",
+            self.task_reliability,
+        )
+        # permissions (reference rest/route/permissions.go)
+        r("GET", r"/rest/v2/permissions", self.permissions_catalog)
+        r("GET", r"/rest/v2/permissions/users", self.all_users_permissions)
+        r("GET", r"/rest/v2/users/(?P<user>[^/]+)/permissions",
+          self.get_user_permissions)
+        r("POST", r"/rest/v2/users/(?P<user>[^/]+)/permissions",
+          self.post_user_permissions)
+        r("DELETE", r"/rest/v2/users/(?P<user>[^/]+)/permissions",
+          self.delete_user_permissions)
+        # project copy and the settings audit (reference project_copy.go,
+        # project_events.go)
+        r("POST", r"/rest/v2/projects/(?P<project>[^/]+)/copy",
+          self.copy_project)
+        r("POST", r"/rest/v2/projects/(?P<project>[^/]+)/copy/variables",
+          self.copy_project_vars)
+        r("GET", r"/rest/v2/projects/(?P<project>[^/]+)/events",
+          self.project_events)
         # direct notifications (reference rest/route/notification.go)
         r("POST", r"/rest/v2/notifications/slack", self.notify_slack)
         r("POST", r"/rest/v2/notifications/email", self.notify_email)
@@ -2033,6 +2080,36 @@ class RestApi:
         )
         return 200, [t.to_doc() for t in ts]
 
+    def restart_version(self, method, match, body):
+        """Restart every finished task of a version (reference
+        units/tasks_restart.go / version restart route)."""
+        by = body.get("user", "api")
+        restarted = []
+        for t in task_mod.find(
+            self.store, lambda d: d["version"] == match["version"]
+        ):
+            if t.is_finished() and task_jobs.restart_task(
+                self.store, t.id, by=by
+            ):
+                restarted.append(t.id)
+        return 200, {"restarted": restarted}
+
+    def abort_version(self, method, match, body):
+        """Flag every in-flight task of a version for abort and deactivate
+        the queued ones (reference version abort semantics)."""
+        by = body.get("user", "api")
+        aborted, deactivated = [], []
+        for t in task_mod.find(
+            self.store, lambda d: d["version"] == match["version"]
+        ):
+            if t.status in (TaskStatus.DISPATCHED.value, TaskStatus.STARTED.value):
+                task_jobs.abort_task(self.store, t.id, by=by)
+                aborted.append(t.id)
+            elif t.status == TaskStatus.UNDISPATCHED.value and t.activated:
+                task_mod.coll(self.store).update(t.id, {"activated": False})
+                deactivated.append(t.id)
+        return 200, {"aborted": aborted, "deactivated": deactivated}
+
     def get_build(self, method, match, body):
         b = build_mod.get(self.store, match["build"])
         if b is None:
@@ -2127,6 +2204,49 @@ class RestApi:
             )
         ]
 
+    def get_annotations(self, method, match, body):
+        import dataclasses as _dc
+
+        from ..models.annotations import get_annotation
+
+        ann = get_annotation(
+            self.store, match["task"], int(body.get("execution", 0) or 0)
+        )
+        return 200, _dc.asdict(ann) if ann else {}
+
+    def put_annotation(self, method, match, body):
+        from ..models.annotations import (
+            Annotation,
+            IssueLink,
+            get_annotation,
+            upsert_annotation,
+        )
+
+        execution = int(body.get("execution", 0) or 0)
+        ann = get_annotation(self.store, match["task"], execution) or Annotation(
+            task_id=match["task"], execution=execution
+        )
+        if "note" in body:
+            ann.note = str(body["note"])
+        for issue in body.get("issues", []):
+            ann.issues.append(
+                IssueLink(
+                    url=issue.get("url", ""),
+                    issue_key=issue.get("issue_key", ""),
+                    source="api",
+                    added_by=body.get("user", "api"),
+                )
+            )
+        for issue in body.get("suspected_issues", []):
+            ann.suspected_issues.append(
+                IssueLink(url=issue.get("url", ""), source="api",
+                          added_by=body.get("user", "api"))
+            )
+        upsert_annotation(self.store, ann)
+        import dataclasses as _dc
+
+        return 200, _dc.asdict(ann)
+
     def sign_artifact(self, method, match, body):
         from ..models.artifact import sign_url
 
@@ -2194,6 +2314,47 @@ class RestApi:
         return 200, {"ok": True}
 
     # -- the operator's surface ------------------------------------------ #
+
+    def get_admin(self, method, match, body):
+        """Every config section (superuser only when a caller is
+        authenticated: the sections hold the service's credentials; a
+        departure, see the module)."""
+        import dataclasses as _dc
+
+        self._require_superuser()
+        out = {}
+        for sid in all_sections():
+            section = get_section(self.store, sid)
+            if section is not None:
+                out[sid] = _dc.asdict(section)
+        return 200, out
+
+    def set_admin(self, method, match, body):
+        """Edit config sections (superuser only: ``_ADMIN_PATHS``). Each
+        reader gets the section from the store when it runs, so the
+        tick reads an edit of its sections at its next run."""
+        import dataclasses as _dc
+
+        updated = []
+        for sid, values in body.items():
+            cls = all_sections().get(sid)
+            if cls is None:
+                raise ApiError(400, f"unknown config section {sid!r}")
+            # edit the BASE document: get() applies overrides, and a
+            # get→set round trip through it would bake them in permanently
+            section = cls.get_base(self.store)
+            known = {f.name for f in _dc.fields(section)}
+            for k, v in values.items():
+                if k not in known:
+                    raise ApiError(400, f"unknown field {k!r} in section {sid!r}")
+                setattr(section, k, v)
+            section.set(self.store)
+            updated.append(sid)
+        if "auth" in updated:
+            # the user manager is built from the auth section; a stale
+            # cache would keep serving revoked credentials/managers
+            self.reload_user_manager()
+        return 200, {"updated": updated}
 
     def get_overload(self, method, match, body):
         """Overload-ladder introspection: current level, fused gauges,
@@ -2416,6 +2577,276 @@ class RestApi:
         stats.sort(key=lambda d: d["at"])
         return 200, stats[-500:]
 
+    # -- task reliability (reference rest/route/reliability.go) --------- #
+
+    @staticmethod
+    def _num(body: dict, key: str, default, cast=float):
+        """Numeric query/body param → 400 on malformed input (the
+        dispatch loop would surface a bare ValueError as a 500)."""
+        v = body.get(key)
+        if v in (None, ""):
+            return default
+        try:
+            return cast(v)
+        except (TypeError, ValueError):
+            raise ApiError(400, f"invalid numeric parameter {key!r}")
+
+    def task_reliability(self, method, match, body):
+        """GET /projects/{id}/task_reliability — Wilson-scored success
+        rates over finished executions (reference reliability.go +
+        model/reliability/query.go)."""
+        from ..models import reliability as rel_mod
+
+        def _csv(key):
+            v = body.get(key, "")
+            if isinstance(v, list):
+                return [str(x) for x in v]
+            return [s for s in str(v).split(",") if s]
+
+        now = _time.time()
+        f = rel_mod.ReliabilityFilter(
+            project=match["project"],
+            tasks=_csv("tasks"),
+            after_date=self._num(body, "after_date", now - 28 * 86400),
+            before_date=self._num(body, "before_date", now),
+            group_by=body.get("group_by") or rel_mod.GROUP_BY_TASK,
+            group_num_days=self._num(body, "group_num_days", 1, int),
+            requesters=_csv("requesters") or None,
+            variants=_csv("variants") or None,
+            distros=_csv("distros") or None,
+            significance=self._num(body, "significance", 0.05),
+            sort=body.get("sort") or rel_mod.SORT_LATEST,
+            limit=self._num(body, "limit", rel_mod.MAX_LIMIT, int),
+        )
+        try:
+            scores = rel_mod.get_task_reliability_scores(self.store, f)
+        except ValueError as e:
+            raise ApiError(400, str(e))
+        return 200, [s.to_doc() for s in scores]
+
+    # -- permissions (reference rest/route/permissions.go) -------------- #
+
+    #: the permission catalog the UI renders pickers from (reference
+    #: permissionsGetHandler.getAllPermissions — project + distro
+    #: permission keys mapped onto this repo's scope model)
+    _PERMISSION_CATALOG = {
+        "projectPermissions": [
+            {"key": "project_settings",
+             "name": "Project Settings",
+             "levels": ["admin", "view", "none"]},
+            {"key": "project_tasks",
+             "name": "Tasks (restart/abort/set priority)",
+             "levels": ["admin", "view", "none"]},
+            {"key": "project_patches",
+             "name": "Patches",
+             "levels": ["admin", "none"]},
+            {"key": "project_logs",
+             "name": "Logs",
+             "levels": ["view", "none"]},
+        ],
+        "distroPermissions": [
+            {"key": "distro_settings",
+             "name": "Distro Settings",
+             "levels": ["admin", "edit", "view", "none"]},
+            {"key": "distro_hosts",
+             "name": "Spawn Hosts",
+             "levels": ["edit", "view", "none"]},
+        ],
+    }
+
+    def _require_superuser(self) -> None:
+        """Role-editing gate (reference editRoles middleware). Only
+        enforced when an authenticated identity exists (dev mode has no
+        verified identity to check)."""
+        ident = getattr(self._ident, "user", "")
+        if ident and not getattr(self._ident, "superuser", False):
+            raise ApiError(403, "superuser scope required")
+
+    def permissions_catalog(self, method, match, body):
+        return 200, self._PERMISSION_CATALOG
+
+    def all_users_permissions(self, method, match, body):
+        """GET /permissions/users → {user: [roles]} for every user that
+        holds any role (reference makeGetAllUsersPermissions)."""
+        self._require_superuser()
+        from ..models import user as user_mod
+
+        return 200, {
+            d["_id"]: d.get("roles", [])
+            for d in user_mod.coll(self.store).find(
+                lambda d: d.get("roles")
+            )
+        }
+
+    def get_user_permissions(self, method, match, body):
+        from ..models import user as user_mod
+
+        u = user_mod.get_user(self.store, match["user"])
+        if u is None:
+            raise ApiError(404, f"no user {match['user']!r}")
+        return 200, {"user_id": u.id, "roles": list(u.roles)}
+
+    def post_user_permissions(self, method, match, body):
+        """POST /users/{id}/permissions {"role": ...} — grant (reference
+        makeModifyUserPermissions)."""
+        self._require_superuser()
+        from ..models import user as user_mod
+
+        role = body.get("role", "")
+        if not role:
+            raise ApiError(400, "missing role")
+        if not user_mod.grant_role(self.store, match["user"], role):
+            raise ApiError(404, f"no user {match['user']!r}")
+        u = user_mod.get_user(self.store, match["user"])
+        return 200, {"user_id": u.id, "roles": list(u.roles)}
+
+    def delete_user_permissions(self, method, match, body):
+        """DELETE /users/{id}/permissions — revoke one role when given,
+        else all (reference makeDeleteUserPermissions strips all)."""
+        self._require_superuser()
+        from ..models import user as user_mod
+
+        role = body.get("role", "")
+        ok = (
+            user_mod.revoke_role(self.store, match["user"], role)
+            if role
+            else user_mod.revoke_all_roles(self.store, match["user"])
+        )
+        if not ok:
+            raise ApiError(404, f"no user {match['user']!r}")
+        return 200, {"ok": True}
+
+    # -- project copy + vars (reference rest/route/project_copy.go) ----- #
+
+    def _require_project_admin(self, project_id: str) -> None:
+        """reference requireProjectAdmin middleware: superuser or the
+        per-project admin scope."""
+        ident = getattr(self._ident, "user", "")
+        if not ident or getattr(self._ident, "superuser", False):
+            return
+        from ..models import user as user_mod
+
+        u = user_mod.get_user(self.store, ident)
+        if u is not None and u.has_scope(f"project:{project_id}"):
+            return
+        raise ApiError(
+            403, f"project admin scope required for {project_id!r}"
+        )
+
+    def copy_project(self, method, match, body):
+        """POST /projects/{id}/copy {"new_project": ...}: duplicate the
+        project ref (disabled until reviewed, like the reference) and its
+        non-private variables (reference project_copy.go
+        makeCopyProject → data.CopyProject)."""
+        import dataclasses as _dc
+
+        from ..models import project_vars as pvars_mod
+
+        self._require_project_admin(match["project"])
+        new_id = body.get("new_project", "")
+        if not new_id:
+            raise ApiError(400, "missing new_project")
+        src = repotracker_mod.get_project_ref(self.store, match["project"])
+        if src is None:
+            raise ApiError(404, f"no project {match['project']!r}")
+        if repotracker_mod.get_project_ref(self.store, new_id) is not None:
+            raise ApiError(400, f"project {new_id!r} already exists")
+        dup = _dc.replace(src, id=new_id)
+        # the copy starts disabled so it cannot ingest/schedule until a
+        # human reviews it (reference data.CopyProject sets Enabled=false)
+        dup.enabled = False
+        repotracker_mod.upsert_project_ref(self.store, dup)
+        pvars_mod.copy_vars(
+            self.store, match["project"], new_id, include_private=False
+        )
+        event_mod.log(
+            self.store, event_mod.RESOURCE_PROJECT, "PROJECT_COPIED",
+            new_id, {"copied_from": match["project"],
+                     "user": getattr(self._ident, "user", "")},
+        )
+        return 200, dup.to_doc()
+
+    def copy_project_vars(self, method, match, body):
+        """POST /projects/{id}/copy/variables (reference
+        copyVariablesHandler: copy_to required; dry_run previews with
+        private values redacted; include_private; overwrite)."""
+        from ..models import project_vars as pvars_mod
+
+        copy_to = body.get("copy_to", "")
+        if not copy_to:
+            raise ApiError(400, "missing copy_to")
+        # BOTH sides need the admin scope (reference: requireProjectAdmin
+        # wraps the URL/source project, and Run re-checks settings-edit on
+        # the destination) — source-side auth is what keeps a destination
+        # admin from exfiltrating another project's private values
+        self._require_project_admin(match["project"])
+        self._require_project_admin(copy_to)
+        if repotracker_mod.get_project_ref(self.store, copy_to) is None:
+            raise ApiError(404, f"no project {copy_to!r}")
+        dry_run = bool(body.get("dry_run"))
+        copied = pvars_mod.copy_vars(
+            self.store,
+            match["project"],
+            copy_to,
+            dry_run=dry_run,
+            include_private=bool(body.get("include_private")),
+            overwrite=bool(body.get("overwrite")),
+        )
+        if not dry_run:
+            event_mod.log(
+                self.store, event_mod.RESOURCE_PROJECT,
+                "PROJECT_VARS_COPIED", copy_to,
+                {"copied_from": match["project"],
+                 "keys": sorted(copied),
+                 "user": getattr(self._ident, "user", "")},
+            )
+        return 200, {"vars": copied, "dry_run": dry_run}
+
+    def project_events(self, method, match, body):
+        """GET /projects/{id}/events — settings-change audit trail with
+        keyed pagination (reference project_events.go projectEventsGet:
+        newest-first, ?ts= continues before that timestamp). The cursor
+        is (timestamp, id), not timestamp alone — events sharing one
+        time.time() tick at a page boundary must not vanish."""
+        limit = self._num(body, "limit", 10, int)
+        before_ts = self._num(body, "ts", _time.time() + 1)
+        before_id = body.get("id", "")
+
+        def seq(event_id: str):
+            # ids are "evt-{n}" with a monotonically increasing n; the
+            # tiebreak must be NUMERIC ("evt-9" vs "evt-10" would invert
+            # lexicographically). Non-conforming ids fall back to
+            # lexicographic comparison — collapsing them all to one rank
+            # would skip or duplicate same-timestamp events at a page
+            # boundary.
+            try:
+                return (0, int(event_id.rsplit("-", 1)[-1]), "")
+            except ValueError:
+                return (1, 0, event_id)
+
+        before_key = (before_ts, seq(before_id)) if before_id else None
+        evs = [
+            e
+            for e in event_mod.find_by_resource(
+                self.store, match["project"]
+            )
+            if e.resource_type == event_mod.RESOURCE_PROJECT
+            and (
+                (e.timestamp, seq(e.id)) < before_key
+                if before_key is not None
+                else e.timestamp < before_ts
+            )
+        ]
+        evs.sort(key=lambda e: (e.timestamp, seq(e.id)), reverse=True)
+        page = evs[:limit]
+        import dataclasses as _dc
+
+        out = {"events": [_dc.asdict(e) for e in page]}
+        if len(evs) > limit:
+            out["next_ts"] = page[-1].timestamp
+            out["next_id"] = page[-1].id
+        return 200, out
+
     # -- the event plane ------------------------------------------------- #
 
     def list_events(self, method, match, body):
@@ -2531,6 +2962,36 @@ class RestApi:
             # destroy another's notifications
             raise ApiError(403, "unowned subscription: admin only")
         self.store.collection("subscriptions").remove(match["sub"])
+        return 200, {"ok": True}
+
+    def delete_distro(self, method, match, body):
+        """DELETE a distro (reference rest/route/distro.go DELETE; admin
+        path — _ADMIN_PATHS gates it when auth is on). Refused while
+        hosts still reference it. The tick's next run plans the smaller
+        distro set: the TickCache's distro view and the resident plane
+        see the removal through the store's listeners."""
+        if distro_mod.get(self.store, match["distro"]) is None:
+            raise ApiError(404, "distro not found")
+        n_hosts = host_mod.coll(self.store).count(
+            lambda d: d["distro_id"] == match["distro"]
+            and d["status"] not in ("terminated",)
+        )
+        if n_hosts:
+            raise ApiError(
+                409, f"distro has {n_hosts} live host(s); drain it first"
+            )
+        distro_mod.coll(self.store).remove(match["distro"])
+        # clear persisted queues so nothing reads phantom demand for a
+        # distro that can never run it (reference DeleteDistroById →
+        # ClearTaskQueue), and leave an audit event
+        from ..models import task_queue as tq_mod
+
+        tq_mod.coll(self.store).remove(match["distro"])
+        tq_mod.coll(self.store, secondary=True).remove(match["distro"])
+        event_mod.log(
+            self.store, event_mod.RESOURCE_HOST, "DISTRO_REMOVED",
+            match["distro"], {},
+        )
         return 200, {"ok": True}
 
     def _notify_direct(self, channel: str, doc: dict):

@@ -89,11 +89,17 @@
             a user's volumes (``/rest/v2/volumes``); ``delete`` is the
             port's (the JAX package's command has no delete, its server
             the route)
+    admin   (get | set-flag) [--flag F] [--value true|false]
+            every config section (``GET /rest/v2/admin/settings``), or one
+            ``service_flags`` field set (``POST``, superuser only); the
+            answer is printed, an error included, and it exits 0
+    version
+            prints the package's version
 
 The server commands (``list`` with ``--distros`` or ``--projects``,
 ``patch``, ``patch-list``, ``patch-cancel``, ``patch-finalize``, ``keys``,
 ``subscriptions``, ``status``, ``last-green``, ``fetch``, ``host``,
-``volume``) take ``--api-server URL`` and,
+``volume``, ``admin``) take ``--api-server URL`` and,
 against a server that requires auth, ``--api-user U --api-key K``, sent
 as the ``Api-User`` and ``Api-Key`` headers. The JAX package's client
 sends no credentials: against such a server only its ``login`` answers.
@@ -107,8 +113,12 @@ checks the card in a fresh interpreter, once (``Environment.build``
 does not probe). ``service --replica-of``, ``agent``, ``agent-monitor``
 and the client commands never probe and never import ``torch``: a
 replica has no device work, and a build host or a developer's machine
-has no card. The JAX package's ``service --capture-trace`` is not
-ported (no trace capture).
+has no card.
+
+Not ported: the JAX package's ``bench`` (the port has no benchmark
+yet), ``smoke`` (it drives GraphQL, which the port lacks),
+``replay-trace`` and ``service --capture-trace`` (the scenario engine's
+trace capture and replay).
 """
 from __future__ import annotations
 
@@ -631,6 +641,31 @@ def cmd_user(args) -> int:
     return 0
 
 
+def cmd_version(args) -> int:
+    from . import __version__
+
+    print(f"evergreen-tpu {__version__}")
+    return 0
+
+
+def cmd_admin(args) -> int:
+    """Read every config section, or set one service flag (reference
+    operations/admin.go over ``/rest/v2/admin/settings``). As in the JAX
+    package it prints the server's answer and exits 0, an error answer
+    (a non-superuser's 403) included."""
+    call = _client(args)
+    if args.action == "get":
+        print(json.dumps(call("GET", "/rest/v2/admin/settings"), indent=2))
+    elif args.action == "set-flag":
+        out = call(
+            "POST",
+            "/rest/v2/admin/settings",
+            {"service_flags": {args.flag: args.value.lower() == "true"}},
+        )
+        print(json.dumps(out))
+    return 0
+
+
 def cmd_status(args) -> int:
     call = _client(args)
     if not args.watch:
@@ -1010,6 +1045,14 @@ def build_parser() -> argparse.ArgumentParser:
     vo.add_argument("--size-gb", type=int, default=0)
     server_args(vo)
     vo.set_defaults(fn=cmd_volume)
+    ve = sub.add_parser("version", help="print the version")
+    ve.set_defaults(fn=cmd_version)
+    ad = sub.add_parser("admin", help="admin settings")
+    ad.add_argument("action", choices=["get", "set-flag"])
+    ad.add_argument("--flag", default="")
+    ad.add_argument("--value", default="true")
+    server_args(ad)
+    ad.set_defaults(fn=cmd_admin)
     us = sub.add_parser("user", help="create users / grant roles")
     us.add_argument("action", choices=["create", "grant"])
     us.add_argument("user_id")

@@ -1,40 +1,22 @@
 """Cost accounting: per-task cloud cost attribution.
 
-A copy of ``evergreen_tpu/models/cost.py``'s ``CostConfig`` section and
-``attribute_task_cost``, which ``mark_end`` calls (reference
-model/task_lifecycle.go:754-768): a finished task is billed its runtime ×
+A copy of ``evergreen_tpu/models/cost.py``'s ``attribute_task_cost``,
+which ``mark_end`` calls (reference model/task_lifecycle.go:754-768),
+over its ``CostConfig`` section (kept in ``settings.py`` with the
+others): a finished task is billed its runtime ×
 its host's instance-type rate (on-demand or spot-discounted), plus an EBS
 per-hour component. The cost-reporting reader (``project_cost``) is not
 ported.
 """
 from __future__ import annotations
 
-import dataclasses
 import time as _time
-from typing import Dict, Optional
+from typing import Optional
 
-from ..settings import ConfigSection, register_section
+from ..settings import CostConfig
 from ..storage.store import Store
 
 TASK_COSTS_COLLECTION = "task_costs"
-
-
-@register_section
-@dataclasses.dataclass
-class CostConfig(ConfigSection):
-    """reference config_cost.go."""
-
-    section_id = "cost"
-
-    #: instance type → USD per hour (on-demand)
-    on_demand_prices: Dict[str, float] = dataclasses.field(default_factory=dict)
-    #: fraction of on-demand paid for spot capacity
-    spot_discount: float = 0.35
-    #: default rate for unknown instance types
-    default_price_per_hour: float = 0.10
-    #: EBS/hour attached-storage component
-    ebs_price_per_hour: float = 0.01
-    financial_formula_percentage: float = 1.0
 
 
 def hourly_rate(config: CostConfig, instance_type: str, spot: bool) -> float:

@@ -1,27 +1,36 @@
-"""Store-backed config sections: the ones the tick's planning half reads.
+"""Store-backed config sections: every section of the JAX package.
 
-A copy of the part of ``evergreen_tpu/settings.py`` the port needs:
-``ConfigSection`` with its field-level overrides, and the
-``service_flags``, ``capacity``, ``overrides``, ``release_mode``,
-``overload``, ``sharding``, ``task_limits``, ``read_path`` and
-``tracer`` sections (``models/cost.py`` registers ``cost`` as the JAX
-package's model does), and the job plane's: ``host_init``, ``api``,
-``auth`` (with ``okta_service``, whose credentials the user-manager
-loader falls back to), ``logger_config``, ``amboy``, ``container_pools`` and
-``ssh``, the REST surface's ``rate_limit``, and the event plane's
-``notify``, ``slack``, ``jira`` and ``jira_notifications`` (with the
-``api`` section's webhook and SNS secrets), and the spawn-host surface's
-``spawnhost`` and ``sleep_schedule``. Sections live in the same
-``config`` collection under the same ``_id`` with the same fields, so a
-section one package writes reads back the same in the other
-(``tests/test_torch_store.py``). The registry holds these sections only,
-so an override of a section the port lacks is refused as unknown; the
-other sections are not ported.
+A copy of ``evergreen_tpu/settings.py``: ``ConfigSection`` with its
+field-level overrides, the registry (``register_section``,
+``get_section``, ``all_sections``) and all 37 of the JAX package's
+sections, at its defaults and with its validation. The tick's planning
+half reads ``service_flags``, ``capacity``, ``overrides``,
+``release_mode``, ``overload``, ``sharding``, ``task_limits``,
+``read_path`` and ``tracer``; ``models/cost.py`` reads ``cost``; the job plane reads ``host_init``,
+``api``, ``auth`` (with ``okta_service``, whose credentials the
+user-manager loader falls back to), ``logger_config``, ``amboy``,
+``container_pools`` and ``ssh``; the REST surface ``rate_limit``; the
+event plane ``notify``, ``slack``, ``jira`` and ``jira_notifications``
+(with the ``api`` section's webhook and SNS secrets); the spawn-host
+surface ``spawnhost`` and ``sleep_schedule``. The rest (``scheduler``,
+``ui``, ``triggers``, ``providers``, ``parameter_store``,
+``project_creation``, ``single_task_distro``, ``test_selection``,
+``splunk``, ``github_check_run``, ``buckets``) have no reader but the
+admin settings routes, which edit every section, as in the JAX package.
+Sections live in the same ``config`` collection under the same ``_id``
+with the same fields, so a section one package writes reads back the
+same in the other (``tests/test_torch_store.py``).
+
+The JAX package registers two classes under ``cost``: its settings
+module's and ``models/cost.py``'s, and the one imported last wins (the
+model's, once ``mark_end`` has imported it). The port keeps the model's
+alone, here beside every other section, so the registry is whole once
+this module is imported.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Type
+from typing import Dict, List, Optional, Type
 
 from .storage.store import Store
 from .utils import metrics as _metrics
@@ -99,7 +108,7 @@ def _apply_overrides(store: Store, section: "ConfigSection") -> bool:
     return applied
 
 
-#: the ported sections by id; an override must name one of them
+#: the sections by id; an override must name one of them
 _SECTIONS: Dict[str, Type[ConfigSection]] = {}
 
 
@@ -107,6 +116,15 @@ def register_section(cls: Type[ConfigSection]) -> Type[ConfigSection]:
     assert cls.section_id
     _SECTIONS[cls.section_id] = cls
     return cls
+
+
+def get_section(store: Store, section_id: str) -> Optional[ConfigSection]:
+    cls = all_sections().get(section_id)
+    return cls.get(store) if cls else None
+
+
+def all_sections() -> Dict[str, Type[ConfigSection]]:
+    return dict(_SECTIONS)
 
 
 @register_section
@@ -755,11 +773,14 @@ class OktaServiceConfig(ConfigSection):
 class LoggerConfig(ConfigSection):
     """reference config_logger.go. The port reads ``default_level``
     (``utils/log.py::configure``) and ``request_sample_ratio`` (the REST
-    surface's sampled access log, ``api/rest.py``); the JAX section's
-    buffer knobs configure its buffered sink, which is not ported."""
+    surface's sampled access log, ``api/rest.py``); the buffer knobs
+    configure the JAX package's buffered sink, which is not ported, and
+    are kept so that the admin settings carry the whole section."""
 
     section_id = "logger_config"
 
+    buffer_count: int = 100
+    buffer_interval_seconds: int = 20
     default_level: str = "info"
     #: fraction of HTTP requests logged as structured records (reference
     #: service/sampled_request_logger.go); 0 disables
@@ -798,11 +819,14 @@ class RateLimitConfig(ConfigSection):
 @dataclasses.dataclass
 class AmboyConfig(ConfigSection):
     """Background job plane sizing (reference config_amboy.go): the
-    ``JobQueue`` worker pool ``env.py::Environment.build`` starts."""
+    ``JobQueue`` worker pool ``env.py::Environment.build`` starts. The
+    retry and lock knobs have no reader in either package."""
 
     section_id = "amboy"
 
     pool_size_local: int = 8
+    retry_max_attempts: int = 10
+    lock_timeout_minutes: int = 10
 
     def validate_and_default(self) -> str:
         if self.pool_size_local <= 0:
@@ -855,21 +879,40 @@ class ContainerPoolsConfig(ConfigSection):
     #: list of {"id": ..., "distro": ..., "max_containers": N, "port": N}
     pools: List[Dict] = dataclasses.field(default_factory=list)
 
+    def validate_and_default(self) -> str:
+        seen = set()
+        for p in self.pools:
+            if not p.get("id"):
+                return "every container pool needs an id"
+            if p["id"] in seen:
+                return f"duplicate container pool id {p['id']!r}"
+            seen.add(p["id"])
+            if int(p.get("max_containers", 0)) <= 0:
+                return f"pool {p['id']!r} needs max_containers > 0"
+        return ""
+
 
 @register_section
 @dataclasses.dataclass
 class SshConfig(ConfigSection):
-    """SSH options for the host transport (reference config_ssh.go;
+    """SSH key pairs + connection options for host transports (reference
+    config_ssh.go SSHConfig/SSHKeyPair;
     ``cloud/provisioning.py::transport_from_config``: a task-host key
-    selects ``SshTransport``). The spawn-host key fields are not ported."""
+    selects ``SshTransport``). The key names and the spawn-host key have
+    no reader in the port."""
 
     section_id = "ssh"
 
-    #: private-key file path
+    task_host_key_name: str = ""
+    #: private-key file path (the reference stores a Secrets Manager ARN;
+    #: here the parameter-store seam or a file path)
     task_host_key_path: str = ""
+    spawn_host_key_name: str = ""
+    spawn_host_key_path: str = ""
     user: str = "ubuntu"
     connect_timeout_s: float = 10.0
-    #: bound on one deploy/setup script run
+    #: bound on one deploy/setup script run — unrelated to connect time
+    #: (package installs on first provision can take minutes)
     script_timeout_s: float = 1800.0
     #: extra -o options, e.g. ["StrictHostKeyChecking=no"]
     options: List[str] = dataclasses.field(default_factory=list)
@@ -936,3 +979,173 @@ class JiraNotificationsConfig(ConfigSection):
     #: project key → {"fields": {name: value}, "components": [...],
     #: "labels": [...]}
     custom_fields: Dict[str, Dict] = dataclasses.field(default_factory=dict)
+
+
+# -- the sections only the admin settings routes read ----------------------- #
+
+
+@register_section
+@dataclasses.dataclass
+class SchedulerConfig(ConfigSection):
+    """Global scheduler knobs (reference config_scheduler.go)."""
+
+    section_id = "scheduler"
+
+    target_time_seconds: int = 0
+    patch_factor: int = 0
+    patch_time_in_queue_factor: int = 0
+    commit_queue_factor: int = 0
+    mainline_time_in_queue_factor: int = 0
+    expected_runtime_factor: int = 0
+    generate_task_factor: int = 0
+    num_dependents_factor: float = 0.0
+    stepback_task_factor: int = 0
+    max_scheduled_tasks_per_distro: int = 0
+
+
+@register_section
+@dataclasses.dataclass
+class UiConfig(ConfigSection):
+    """reference config_ui.go:18-33."""
+
+    section_id = "ui"
+
+    url: str = ""
+    http_listen_addr: str = ""
+    secret: str = ""
+    default_project: str = ""
+    csrf_key: str = ""
+    cors_origins: List[str] = dataclasses.field(default_factory=list)
+    login_domain: str = ""
+    #: site-wide announcement banner (reference admin settings Banner /
+    #: BannerTheme)
+    banner: str = ""
+    banner_theme: str = "ANNOUNCEMENT"
+
+    def validate_and_default(self) -> str:
+        if self.csrf_key and len(self.csrf_key) != 32:
+            return "csrf_key must be 32 characters"
+        return ""
+
+
+@register_section
+@dataclasses.dataclass
+class TriggerConfig(ConfigSection):
+    """Downstream project triggers (reference config_triggers.go)."""
+
+    section_id = "triggers"
+
+    generate_task_distro: str = ""
+
+
+@register_section
+@dataclasses.dataclass
+class CloudProvidersConfig(ConfigSection):
+    """Provider credentials/regions (reference config_cloud.go — secrets
+    referenced via the parameter store, never inline)."""
+
+    section_id = "providers"
+
+    aws_default_region: str = "us-east-1"
+    aws_allowed_regions: List[str] = dataclasses.field(
+        default_factory=lambda: ["us-east-1"]
+    )
+    aws_parameter_prefix: str = ""
+    docker_default_registry: str = ""
+
+
+@register_section
+@dataclasses.dataclass
+class CostConfig(ConfigSection):
+    """reference config_cost.go: the rates ``models/cost.py`` bills a
+    finished task at (the JAX package's model's class; see the module)."""
+
+    section_id = "cost"
+
+    #: instance type → USD per hour (on-demand)
+    on_demand_prices: Dict[str, float] = dataclasses.field(default_factory=dict)
+    #: fraction of on-demand paid for spot capacity
+    spot_discount: float = 0.35
+    #: default rate for unknown instance types
+    default_price_per_hour: float = 0.10
+    #: EBS/hour attached-storage component
+    ebs_price_per_hour: float = 0.01
+    financial_formula_percentage: float = 1.0
+
+
+@register_section
+@dataclasses.dataclass
+class ParameterStoreConfig(ConfigSection):
+    """reference cloud/parameterstore config section."""
+
+    section_id = "parameter_store"
+
+    prefix: str = ""
+
+
+@register_section
+@dataclasses.dataclass
+class ProjectCreationConfig(ConfigSection):
+    """reference config_project_creation.go."""
+
+    section_id = "project_creation"
+
+    total_project_limit: int = 0
+    repo_project_limit: int = 0
+    jira_project: str = ""
+
+
+@register_section
+@dataclasses.dataclass
+class SingleTaskDistroConfig(ConfigSection):
+    """reference config_single_task_distro.go."""
+
+    section_id = "single_task_distro"
+
+    #: project -> allowed task name patterns
+    project_tasks_pairs: List[Dict] = dataclasses.field(default_factory=list)
+
+
+@register_section
+@dataclasses.dataclass
+class TestSelectionConfig(ConfigSection):
+    """reference config_test_selection.go."""
+
+    section_id = "test_selection"
+
+    url: str = ""
+    default_strategies: List[str] = dataclasses.field(default_factory=list)
+
+
+@register_section
+@dataclasses.dataclass
+class SplunkConfig(ConfigSection):
+    """reference config_splunk.go (log shipping)."""
+
+    section_id = "splunk"
+
+    server_url: str = ""
+    token: str = ""
+    channel: str = ""
+
+
+@register_section
+@dataclasses.dataclass
+class GithubCheckRunConfig(ConfigSection):
+    """reference config_github_check_run.go."""
+
+    section_id = "github_check_run"
+
+    check_run_limit: int = 0
+
+
+@register_section
+@dataclasses.dataclass
+class BucketsConfig(ConfigSection):
+    """Blob-store layout for task output (reference config_buckets.go)."""
+
+    section_id = "buckets"
+
+    log_bucket_name: str = ""
+    test_results_bucket_name: str = ""
+    long_retention_name: str = ""

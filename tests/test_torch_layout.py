@@ -677,6 +677,13 @@ def _copied_dataclasses():
     from evergreen_tpu.events import triggers as j_triggers
     from evergreen_tpu_torch.events import triggers as t_triggers
 
+    from evergreen_tpu.models import annotations as j_annotations
+    from evergreen_tpu.models import project_vars as j_project_vars
+    from evergreen_tpu.models import reliability as j_reliability
+    from evergreen_tpu_torch.models import annotations as t_annotations
+    from evergreen_tpu_torch.models import project_vars as t_project_vars
+    from evergreen_tpu_torch.models import reliability as t_reliability
+
     from evergreen_tpu.ingestion import patches as j_patches
     from evergreen_tpu.ingestion import parser as j_parser
     from evergreen_tpu.ingestion import project as j_project
@@ -730,6 +737,15 @@ def _copied_dataclasses():
         (t_triggers, j_triggers, ("Subscription", "Notification")),
         (t_settings, j_settings, ("NotifyConfig", "ApiConfig", "SlackConfig",
                                   "JiraConfig", "JiraNotificationsConfig")),
+        (t_project_vars, j_project_vars, ("ProjectVars",)),
+        (t_annotations, j_annotations, ("IssueLink", "Annotation")),
+        (t_reliability, j_reliability, ("TaskReliability", "ReliabilityFilter")),
+        (t_settings, j_settings, ("LoggerConfig", "AmboyConfig", "SshConfig",
+                                  "SchedulerConfig", "UiConfig", "TriggerConfig",
+                                  "CloudProvidersConfig", "ParameterStoreConfig",
+                                  "ProjectCreationConfig", "SingleTaskDistroConfig",
+                                  "TestSelectionConfig", "SplunkConfig",
+                                  "GithubCheckRunConfig", "BucketsConfig")),
     ]
     return [(getattr(t, n), getattr(j, n)) for t, j, names in pairs
             for n in names]
@@ -938,8 +954,8 @@ def test_job_plane_copies_match_the_jax_package():
             t_i, j_i = getattr(t_mod, name), getattr(j_mod, name)
             assert (t_i.kind, t_i.name, t_i.labelnames, t_i.help) == (
                 j_i.kind, j_i.name, j_i.labelnames, j_i.help), name
-    # the sections copied in part: JAX's section ids and, for the fields
-    # the port reads, JAX's names, types and defaults
+    # the job plane's sections, whole: JAX's section ids and JAX's names,
+    # types and defaults
     for name in ("ApiConfig", "LoggerConfig", "AmboyConfig", "SshConfig", "HostInitConfig"):
         t_cls, j_cls = getattr(t_settings, name), getattr(j_settings, name)
         assert t_cls.section_id == j_cls.section_id
@@ -975,6 +991,8 @@ names += [m.name for m in pkgutil.walk_packages(ingestion_pkg.__path__,
 names += ["evergreen_tpu_torch.agent", "evergreen_tpu_torch.api.rest",
           "evergreen_tpu_torch.api.auth", "evergreen_tpu_torch.api.readcache",
           "evergreen_tpu_torch.models.artifact", "evergreen_tpu_torch.models.user",
+          "evergreen_tpu_torch.models.annotations", "evergreen_tpu_torch.models.reliability",
+          "evergreen_tpu_torch.models.project_vars", "evergreen_tpu_torch.cloud.parameterstore",
           "evergreen_tpu_torch.utils.etagcache", "evergreen_tpu_torch.ingestion",
           "evergreen_tpu_torch.cli"]
 for n in names:
@@ -997,8 +1015,9 @@ print("ok", len(names))
 def test_agent_surface_imports_no_torch():
     """The agent (``agent/``, with its extended and caching commands) runs
     on build hosts without a card, and the REST surface (``api/rest.py``
-    with ``auth.py`` and ``readcache.py``, the user and artifact models)
-    and the ingestion plane (``ingestion/``) do no device work: none imports ``torch``, at import
+    with ``auth.py`` and ``readcache.py``, the user, artifact,
+    annotation, reliability and project-variable models, the parameter
+    store) and the ingestion plane (``ingestion/``) do no device work: none imports ``torch``, at import
     time or inside a function; nor does importing the command line
     (``cli.py``), whose client commands run on a developer's machine."""
     import os
@@ -1040,7 +1059,8 @@ def test_rest_surface_copies_match_the_jax_package():
     t_api, j_api = t_rest.RestApi(TStore()), j_rest.RestApi(JStore())
     t_routes = [(m, p.pattern) for m, p, _ in t_api._routes]
     j_routes = [(m, p.pattern) for m, p, _ in j_api._routes]
-    assert set(t_routes) <= set(j_routes) and len(t_routes) == 83
+    assert set(t_routes) <= set(j_routes) and len(t_routes) == 99
+    assert set(j_routes) - set(t_routes) == {("POST", "^/graphql$")}
     assert [r for r in j_routes if r in set(t_routes)] == t_routes
     for name in ("SCOPE_SUPERUSER", "COLLECTION"):
         assert getattr(t_user, name) == getattr(j_user, name)
