@@ -8,9 +8,13 @@ raises and exits non-zero; 6 and 7 run after phase 9's profiled round,
 beside the fleet process, see phase 10):
 
 1. card and build: the card's name and power limit, then every kernel of
-   the solve built from csrc/ (one nvcc per source, in parallel); the SM
-   clock the chain bounds use, and the launch floor (the device time of
-   a one-element ``add_``);
+   the solve built from csrc/ (one nvcc per source, in parallel) and the
+   snapshot's evgpack C packer (``evgpack_status()`` must be
+   ``"native"``); the SM clock the chain bounds use, and the launch floor
+   (the device time of a one-element ``add_``). The packer at config 3
+   against its plain version runs in the scenario process before its gate
+   (``packer_phase``: cold builds and a resident plane's cold rebuild
+   and distro-set change byte-identical, both packers' ms);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the solve gives it on BASELINE config 3 (200 distros × 50k
    tasks × 4,000 hosts) and on ragged cases — ``segment_sum`` on each of
@@ -411,13 +415,24 @@ beside the fleet process, see phase 10):
    directory, each replayed twice on the card, ok and deterministic.
    Every card run's launches are held exact against the solves its
    ticks ran on the device (``SolveLog``: each solve's capacity trip
-   count; a solve abandoned at its deadline runs on);
+   count; a solve abandoned at its deadline runs on). Then (5) the
+   process backend (``procs_round``): the proc weathers of
+   ``PROC_CARD_WEATHERS`` through ``ProcScenarioRun`` on the card, each
+   once, ok and converged to a CPU run of its workload's uninterrupted
+   reference fleet (the solver-leader weathers' stacked solves on the
+   card against the CPU's), the crash-matrix kill point
+   ``PROC_CRASH_POINT`` against the CPU's reference and the proc sabotage
+   self-test equal to its CPU twin; the leader's launches held exact
+   against the stacked blocks it solved, each worker life's last
+   reported counters against the card solves it reported (``ProcLog``,
+   ``proc_card_launches``);
 14. a JSON line of the kernels (launches: phases 7–13, by path, phase
    8's loop as the path "loop", phase 10's in-memory control store as
    "durable control", phase 12's card environment as "cron" (round 1)
    and "ingest" (the ticks after the push) and its cold tick as "cold",
    phase 13's service process as "rest", the smoke process as "smoke",
-   the scenario process and phase 13's replay process as "scenarios";
+   the scenario process and phase 13's replay process as "scenarios",
+   the scenario process's proc replays (step 5) as "procs";
    the other phases check theirs
    on lines of their own), the card's line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -427,7 +442,10 @@ card from a fresh interpreter.
 
 ``--sweep`` runs phase 1, then, instead of the rest, times both kernels
 built with other values of their design constants (``sweep``) and
-prints the card's line.
+prints the card's line. ``--procs`` runs phase 1, then, instead of the
+rest, step 5 of the scenario process alone with every candidate of
+``PROC_TIMING_WEATHERS`` and the proc self-test (``procs_timing``): the
+walls a slice reads to choose ``PROC_CARD_WEATHERS``.
 
 Imports only the port, torch, numpy and the standard library.
 """
@@ -4278,8 +4296,10 @@ def join_fleet_child(child) -> dict:
 #: 10, 12 and 13, its data directories and its trace under this root
 SCENARIO_ROOT = os.path.join(HERE, "_smoke_scenarios")
 SCENARIO_WAIT_S = 600.0
-#: the fuzz campaign's seeds, from FUZZCARD_GREEN.json's start seed
-FUZZ_SEEDS = 16
+#: the fuzz campaign's seeds, from FUZZCARD_GREEN.json's start seed (16
+#: until step 5 came beside phases 10-13 and the phases ended past 400 s;
+#: the CPU tests hold 48 seeds' weathers and 16 cases to JAX's)
+FUZZ_SEEDS = 8
 #: the second card run of the specs SCORECARD_GREEN.json pins (the
 #: others always run twice: their determinism has no other witness)
 PINNED_TWICE = True
@@ -4568,16 +4588,291 @@ def trace_round(card, solves, totals, root) -> tuple:
     return path, time.perf_counter() - t0
 
 
+#: step 5 of the scenario process: the process backend's weathers on the
+#: card (``procs_round``), each once (real processes and clocks: not
+#: deterministic), each held to a CPU run of its workload's uninterrupted
+#: reference fleet (``proc_cpu_references``, run before the process's
+#: gate); then one crash-matrix kill point and, with ``PROC_SELFTEST``,
+#: the proc sabotage self-test against its CPU twin. A worker on the card
+#: boots in 14-34 s (its backend probe, torch, CUDA), so each replay
+#: costs 24-68 s there, and its processes load the host beside phases
+#: 10-13: a worker kill, a leader's death at the stacked solve's return
+#: and ``leader-death`` (both at once) fit, ending step 5 near phase 13's
+#: end; ``proc-net-oneway-partition`` (44 s) and the self-test (79 s) run
+#: on the CPU (tests/test_torch_procs*.py)
+PROC_CARD_WEATHERS = ("proc-fleet-sigkill", "proc-leader-kill-return", "leader-death")
+PROC_CRASH_POINT = ("wal.commit", 1)
+PROC_SELFTEST = False
+
+
+class ProcLog:
+    """What the proc replays of this process ran: every ``ProcScenarioRun``
+    executed (``runs``), every supervisor start's wall (``starts``: the
+    fleet lease, the workers' spawn, backend probe, replay, recovery and
+    hello, in parallel; or a successor's adoption), and, for each block a
+    stacked solve of the solver leader returned on the card, the stack's
+    capacity trip count (``stacked``)."""
+
+    def __init__(self):
+        from evergreen_tpu_torch.parallel import sharded
+        from evergreen_tpu_torch.runtime.supervisor import FleetSupervisor
+        from evergreen_tpu_torch.scenarios.procs import ProcScenarioRun
+
+        self.runs, self.starts, self.stacked = [], [], []
+        self._lock = threading.Lock()
+        real_solve = sharded.StackedSolveCache.solve_blocks
+        real_start = FleetSupervisor.start
+        real_execute = ProcScenarioRun.execute
+
+        def solve_blocks(cache, blocks):
+            out = real_solve(cache, blocks)
+            if cache.device.type == "cuda":
+                with self._lock:
+                    self.stacked += [sharded._blocks_cap_iters(blocks)] * len(blocks)
+            return out
+
+        def start(sup, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real_start(sup, *a, **kw)
+            finally:
+                self.starts.append((sup.device.type, time.perf_counter() - t0))
+
+        def execute(run):
+            self.runs.append(run)
+            return real_execute(run)
+
+        sharded.StackedSolveCache.solve_blocks = solve_blocks
+        FleetSupervisor.start = start
+        ProcScenarioRun.execute = execute
+
+    def clear(self) -> None:
+        del self.runs[:], self.stacked[:]
+
+
+def solve_launches(solves, capacity_iters) -> dict:
+    """``expected_launches`` of ``solves`` solves whose capacity trip
+    counts sum to ``capacity_iters``."""
+    return {"fused_distro_stats": solves,
+            "segment_sum": 5 * solves + capacity_iters,
+            "segment_sum[task]": solves,
+            "segment_sum[host]": solves,
+            "segment_sum[pool]": 3 * solves + capacity_iters}
+
+
+def worker_lives(run) -> dict:
+    """Each shard worker life of a proc replay, keyed (shard, epoch): its
+    last round reply's kernel counters and card solves, and the local
+    device solves its replies report (planned by the device, not
+    stacked)."""
+    lives = {}
+    for rnd in run.rounds:
+        for k, rep in rnd.items():
+            if "launches" not in rep:
+                continue
+            life = lives.setdefault((k, rep["epoch"]), {"local": 0})
+            life["launches"] = status_launches(rep)
+            life["card_solves"] = rep["card_solves"]
+            life["local"] += rep.get("planner") == "tpu" and rep.get("solve") != "stacked"
+    return lives
+
+
+def proc_card_launches(plog, card, label) -> dict:
+    """The card launches of the proc replays ``plog`` saw since its last
+    ``clear``: this process's (the solver leader's) held exact against
+    the stacked blocks it solved, each worker life's last reported
+    counters against the card solves it reported, which cover its
+    rounds' local solves. Returns their sum (on the CPU, nothing)."""
+    from evergreen_tpu_torch.ops.distro_stats import fused_distro_stats
+    from evergreen_tpu_torch.ops.segment import segment_sum
+
+    leader = read_launches(fused_distro_stats, segment_sum)
+    out = {}
+    stacked = sum(r.get("solve") == "stacked"
+                  for run in plog.runs for rnd in run.rounds for r in rnd.values())
+    if card == "cuda":
+        want = expected_launches(plog.stacked) if plog.stacked else {}
+        check(nonzero(leader) == nonzero(want),
+              f"{label}: the leader launched {leader}, expected {want} for "
+              f"{len(plog.stacked)} stacked blocks")
+        check(stacked <= len(plog.stacked),
+              f"{label}: {stacked} stacked replies, {len(plog.stacked)} blocks solved")
+        add_launches(out, leader)
+    shown = {}
+    for i, run in enumerate(plog.runs):
+        for (k, epoch), life in sorted(worker_lives(run).items()):
+            cs = life["card_solves"]
+            want = solve_launches(cs["solves"], cs["capacity_iters"])
+            check(nonzero(life["launches"]) == nonzero(want),
+                  f"{label}: run {i} worker {k} (epoch {epoch}) launched "
+                  f"{life['launches']}, expected {want} for its card solves {cs}")
+            check(card != "cuda" or cs["solves"] >= life["local"],
+                  f"{label}: run {i} worker {k} (epoch {epoch}) reports {cs['solves']} "
+                  f"card solves, its rounds {life['local']} local solves")
+            if card == "cuda":
+                add_launches(out, life["launches"])
+            shown[f"{i}.{k}.{epoch}"] = [cs["solves"], life["local"]]
+    log(f"{label}: {len(plog.runs)} replays; launches: leader {nonzero(leader)} for "
+        f"{len(plog.stacked)} stacked blocks ({stacked} stacked replies); workers "
+        f"(run.shard.epoch: card solves reported, local solves in its rounds) "
+        + json.dumps(shown) + " (exact)")
+    return out
+
+
+def proc_spec(name):
+    from evergreen_tpu_torch.scenarios import procs
+    from evergreen_tpu_torch.scenarios.library import PROC_WEATHERS
+
+    return (PROC_WEATHERS.get(name) or procs.PROC_SCENARIOS[name])()
+
+
+def proc_workload_key(spec) -> str:
+    """A proc spec's workload: its problem and solver plane (its deadlines
+    change no converged state)."""
+    args = next(e.args for e in spec.events if e.kind == "proc_fleet")
+    return json.dumps({k: v for k, v in args.items()
+                       if k not in ("round_timeout_s", "command_silence_s")}, sort_keys=True)
+
+
+def proc_cpu_references() -> dict:
+    """The CPU's side of step 5, which needs no card (the scenario process
+    runs it before its gate): the uninterrupted reference fleet of each
+    workload of ``PROC_CARD_WEATHERS`` (``_reference_canonical``), the
+    crash workload's ``proc_reference_state`` and, with
+    ``PROC_SELFTEST``, the proc self-test; each on the CPU, with its wall."""
+    from evergreen_tpu_torch.scenarios import procs
+    from evergreen_tpu_torch.scenarios.fuzz import sabotage_selftest
+
+    out = {"workloads": {}, "walls": {}, "selftest": None}
+    for name in PROC_CARD_WEATHERS:
+        spec = proc_spec(name)
+        key = proc_workload_key(spec)
+        if key not in out["workloads"]:
+            t0 = time.perf_counter()
+            out["workloads"][key] = procs._reference_canonical(spec, device="cpu")
+            out["walls"][f"CPU reference of {name}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["crash"] = procs.proc_reference_state(device="cpu")
+    out["walls"]["CPU crash reference"] = time.perf_counter() - t0
+    if PROC_SELFTEST:
+        t0 = time.perf_counter()
+        out["selftest"] = sabotage_selftest(proc=True, device="cpu")
+        out["walls"]["proc self-test on the CPU"] = time.perf_counter() - t0
+    return out
+
+
+#: ``--procs``: the candidates for the card's step 5, each timed alone
+PROC_TIMING_WEATHERS = ("proc-fleet-sigkill", "proc-leader-kill-return", "leader-death",
+                        "proc-net-oneway-partition")
+
+
+def procs_timing() -> None:
+    """``chip_smoke.py --procs``: step 5 on the card with every weather of
+    ``PROC_TIMING_WEATHERS`` and the proc self-test, with the CPU side
+    first; each wall and supervisor start printed. Its data directories
+    go under ``SCENARIO_ROOT``, removed at the end."""
+    import shutil
+    import tempfile
+
+    global PROC_CARD_WEATHERS, PROC_SELFTEST
+    PROC_CARD_WEATHERS, PROC_SELFTEST = PROC_TIMING_WEATHERS, True
+    shutil.rmtree(SCENARIO_ROOT, ignore_errors=True)
+    os.makedirs(SCENARIO_ROOT)
+    tempfile.tempdir = SCENARIO_ROOT
+    try:
+        t0 = time.perf_counter()
+        cpu = proc_cpu_references()
+        t1 = time.perf_counter()
+        out = procs_round("cuda", cpu)
+        log(f"--procs: the CPU side {t1 - t0:.1f} s, the card's {time.perf_counter() - t1:.1f} "
+            f"s; walls " + json.dumps({k: round(v, 1) for k, v in
+                                       {**cpu["walls"], **out["walls"]}.items()}))
+    finally:
+        tempfile.tempdir = None
+        shutil.rmtree(SCENARIO_ROOT, ignore_errors=True)
+
+
+def procs_round(card, cpu=None) -> dict:
+    """Step 5: ``PROC_CARD_WEATHERS`` through ``ProcScenarioRun`` on
+    ``card``, each once: ok with every invariant, check and SLO, its
+    converged canonical state equal to a CPU run of its workload's
+    uninterrupted reference fleet (one per workload, which is also the
+    rerun side of its ``resume_equals_rerun``); then
+    ``run_crash_point(*PROC_CRASH_POINT)`` on ``card`` against the CPU's
+    ``proc_reference_state``, and with ``PROC_SELFTEST`` the proc sabotage
+    self-test on ``card``, its result equal to its CPU twin's. ``cpu`` is
+    ``proc_cpu_references()``'s result (computed here when None).
+    Launches held by ``proc_card_launches``. Returns the card launches
+    (the kernels line's ``procs`` column), the walls and the supervisor
+    starts on ``card``."""
+    from evergreen_tpu_torch.ops.distro_stats import fused_distro_stats
+    from evergreen_tpu_torch.ops.segment import segment_sum
+    from evergreen_tpu_torch.scenarios import procs
+    from evergreen_tpu_torch.scenarios.fuzz import sabotage_selftest
+
+    cpu = proc_cpu_references() if cpu is None else cpu
+    plog = ProcLog()
+    walls, totals = {}, {}
+
+    def on_card(label, fn):
+        reset_launches(fused_distro_stats, segment_sum)
+        plog.clear()
+        t0 = time.perf_counter()
+        out = fn()
+        walls[label] = time.perf_counter() - t0
+        add_launches(totals, proc_card_launches(plog, card, label))
+        return out
+
+    for name in PROC_CARD_WEATHERS:
+        spec = proc_spec(name)
+        ref = cpu["workloads"][proc_workload_key(spec)]
+        run = procs.ProcScenarioRun(spec, device=card)
+        run.reference_state = ref
+        entry = on_card(name, run.execute)
+        check(entry["ok"], f"{name} on {card}: {failed(entry)}")
+        check(run.reference_canonical == ref,
+              f"{name} on {card}: its converged state differs from the CPU reference")
+        st = entry["stats"]
+        log(f"{name} on {card}: ok in {walls[name]:.1f} s: {st['ticks']} rounds, "
+            f"restarts {st['restarts_total']}, supervisor restarts {st.get('sup_restarts', 0)}, "
+            f"stacked/local replies {st.get('solver_stacked_replies', 0)}/"
+            f"{st.get('solver_local_replies', 0)}; converged to the CPU reference's state")
+    seam, index = PROC_CRASH_POINT
+    label = f"crash point {seam}@{index}"
+    res = on_card(label, lambda: procs.run_crash_point(seam, index, reference=cpu["crash"],
+                                                       device=card))
+    check(res["ok"] and res["parity_ok"] and res["epochs"] == [1, 2],
+          f"{label} on {card}: {res['problems']}, epochs {res['epochs']}")
+    log(f"{label} on {card}: ok in {walls[label]:.1f} s, epochs {res['epochs']}, resumed "
+        f"to the CPU rerun's state")
+    if PROC_SELFTEST:
+        st = on_card("proc self-test", lambda: sabotage_selftest(proc=True, device=card))
+        twin = cpu["selftest"]
+        check(st["ok"] and st == twin, f"proc sabotage self-test on {card}: {st}, CPU {twin}")
+        log(f"proc sabotage self-test on {card}: caught {st['red']}, shrank it to "
+            f"{st['shrunk_events']} events and {st['shrunk_ticks']} ticks, deterministic, "
+            f"fingerprint {st['fingerprint']}, equal to its CPU twin's")
+    starts = [round(s, 2) for dev, s in plog.starts if dev == ("cuda" if card == "cuda" else "cpu")]
+    log(f"step 5: FleetSupervisor.start() walls on {card} (s; a replay's first boots its "
+        f"workers in parallel, a successor's adopts them): {starts}; card launches "
+        f"{nonzero(totals)}")
+    return {"launches": totals, "walls": walls, "starts": starts}
+
+
 def scenario_phases(torch, np, card="cuda", root=SCENARIO_ROOT, trace_ready=None,
-                    trace_out=None, quiet=None) -> dict:
+                    trace_out=None, quiet=None, proc_cpu=None) -> dict:
     """The scenario process's work on ``card`` (``card="cpu"`` rehearses
     it: the card's runs then run on the CPU, launch counts 0): a warm-up
     solve at a weather's dims, then steps 1-4 (``weather_round``,
     ``fuzz_round``, ``failover_round``, ``trace_round``). The engine's
     temporary data directories go under ``root``; the trace file stays
     there for phase 13 (``trace_out`` receives its path, ``trace_ready``
-    is set); then, once ``quiet`` is set (``main`` has ended phase 13),
-    ``timed_round``. Returns the card launches and the walls."""
+    is set); then step 5, the process backend (``procs_round``, against
+    ``proc_cpu``, ``proc_cpu_references()``'s result, computed there when
+    None), and, once ``quiet`` is set (``main`` has ended phase 13),
+    ``timed_round``.
+    Returns the card launches of steps 1-4 and of the timed case, those
+    of step 5 (``"procs"``), the walls and step 5's supervisor starts."""
     import shutil
     import tempfile
 
@@ -4608,17 +4903,24 @@ def scenario_phases(torch, np, card="cuda", root=SCENARIO_ROOT, trace_ready=None
         trace_out["path"] = path
     if trace_ready is not None:
         trace_ready.set()
+    t0 = time.perf_counter()
+    procs = procs_round(card, proc_cpu)
+    walls["procs"] = time.perf_counter() - t0
+    walls.update({f"procs: {k}": v for k, v in procs["walls"].items()})
     if quiet is not None:
         t0 = time.perf_counter()
         quiet.wait()
         walls["wait for phase 13's end"] = time.perf_counter() - t0
     walls["timed"] = timed_round(card, solves, totals)
-    return {"launches": totals, "walls": walls}
+    return {"launches": totals, "walls": walls, "procs": procs["launches"],
+            "proc_starts": procs["starts"]}
 
 
 def scenario_child(here, out_path, t0_wall, gate, trace_ready, quiet, card="cuda") -> None:
-    """The ``spawn`` process of ``start_scenario_child``: its imports,
-    then, once ``gate`` is set, ``scenario_phases`` on ``card``; its lines
+    """The ``spawn`` process of ``start_scenario_child``: its imports, the
+    packer's check (``packer_phase``) and step 5's CPU side
+    (``proc_cpu_references``), then, once ``gate`` is set,
+    ``scenario_phases`` on ``card``; its lines
     tagged and on the script's clock; writes ``{"ok": ..., the launches,
     walls and trace path, or "error"}`` to ``out_path``."""
     global _T0, _TAG
@@ -4632,17 +4934,25 @@ def scenario_child(here, out_path, t0_wall, gate, trace_ready, quiet, card="cuda
 
         import evergreen_tpu_torch.scenarios  # noqa: F401
         from evergreen_tpu_torch.ops import _build
+        from evergreen_tpu_torch.utils.benchgen import generate_problem
 
+        # the packer's check and step 5's CPU side need no card: run them
+        # while the gate is shut
         t0 = time.perf_counter()
+        result["packer"] = packer_phase(np, generate_problem(*CONFIG3, seed=SEED))
+        proc_cpu = proc_cpu_references()
+        t1 = time.perf_counter()
+        log(f"the packer's check and step 5's CPU references in {t1 - t0:.1f} s: "
+            + json.dumps({k: round(v, 1) for k, v in proc_cpu["walls"].items()}))
         gate.wait()
-        log(f"imported, then waited {time.perf_counter() - t0:.1f} s for phase 9's "
-            f"profiled round")
+        log(f"imported and ran them, then waited {time.perf_counter() - t1:.1f} s for "
+            f"phase 9's profiled round")
         if card == "cuda":
             torch.cuda.set_device(0)
             _build.build(("distro_stats", "segment_sum"))  # phase 1 built them: loads
         trace_out = {}
         result.update(scenario_phases(torch, np, card=card, trace_ready=trace_ready,
-                                      trace_out=trace_out, quiet=quiet),
+                                      trace_out=trace_out, quiet=quiet, proc_cpu=proc_cpu),
                       trace=trace_out.get("path"), ok=True)
     except BaseException:
         import traceback
@@ -8459,6 +8769,99 @@ def entry_phases(torch, np, problem, smi, phase_done, card="cuda", root=DATA_ROO
     return cron["cron"], cron["ingest"], rest, cron["cold"], smoked, replayed
 
 
+#: the packer check's cold builds of config 3 on each packer, alternated
+PACK_REPS = 3
+
+
+def packer_phase(np, problem) -> dict:
+    """The evgpack C packer (``utils/native.py``) at config 3 against its
+    pure-Python plain version: ``PACK_REPS`` cold ``build_snapshot``s on
+    each, alternated, every arena byte-identical; then a resident plane
+    on each (config 3 less its last distro: a cold rebuild, then the
+    distro added: the distro-set change), both syncs' arenas
+    byte-identical and equal to a cold build of the same gather. Returns
+    the median pack ms of each and the planes' sync ms."""
+    from evergreen_tpu_torch.scheduler.cache import TickCache
+    from evergreen_tpu_torch.scheduler.resident import ResidentPlane, canonicalize
+    from evergreen_tpu_torch.scheduler.snapshot import build_snapshot
+    from evergreen_tpu_torch.storage.store import Store
+    from evergreen_tpu_torch.utils import native
+    from evergreen_tpu_torch.utils.benchgen import NOW
+
+    @contextlib.contextmanager
+    def packer(name):
+        saved = native._module, native._attempted
+        if name == "plain":
+            native._module, native._attempted = None, True
+        try:
+            yield
+        finally:
+            native._module, native._attempted = saved
+
+    def arena_bytes(snap):
+        return {k: np.asarray(v).tobytes() for k, v in snap.arena.buffers.items()}
+
+    # loaded (phase 1 built it) before anything is timed
+    check(native.evgpack_status() == "native",
+          f"packer: evgpack_status() is {native.evgpack_status()!r}")
+    ms = {"native": [], "plain": []}
+    first = {}
+    for name in ("native", "plain", "plain", "native") * ((PACK_REPS + 1) // 2):
+        if len(ms[name]) == PACK_REPS:
+            continue
+        with packer(name):
+            t0 = time.perf_counter()
+            snap = build_snapshot(*problem, NOW)
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+        got = arena_bytes(snap)
+        snap.arena.close()
+        want = first.setdefault("cold", got)
+        check(got == want, f"packer: a cold build_snapshot on the {name} packer differs")
+    distros = problem[0]
+    held = distros[-1].id
+    plane_ms, bufs = {}, {}
+    for name in ("native", "plain"):
+        store = Store()
+        seed_tick_store(store, problem, only={d.id for d in distros[:-1]})
+        cache, plane = TickCache(store), ResidentPlane(store)
+        for step in ("cold", "distro-set"):
+            if step == "distro-set":
+                seed_tick_store(store, problem, only={held})
+            with packer(name):
+                gathered = cache.gather(NOW)
+                t0 = time.perf_counter()
+                snap = plane.sync(cache, *gathered, NOW)
+                plane_ms[(name, step)] = (time.perf_counter() - t0) * 1e3
+                check(snap is not None, f"packer: the {name} plane fell back at {step}")
+                cold = build_snapshot(*gathered, NOW)
+            check(canonicalize(snap) == canonicalize(cold),
+                  f"packer: the {name} plane's {step} sync differs from a cold build")
+            cold.arena.close()
+            bufs[(name, step)] = arena_bytes(snap)
+            snap.arena.close()
+        plane_ms[(name, "how")] = (
+            "spliced" if plane.topology_splices else "rebuilt")
+    for step in ("cold", "distro-set"):
+        check(bufs[("native", step)] == bufs[("plain", step)],
+              f"packer: the resident plane's {step} arenas differ between the packers")
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    log(f"packer at config 3 ({native.evgpack_status()}): cold build_snapshot median "
+        f"{med['native']:.1f} ms native, {med['plain']:.1f} ms plain (over {PACK_REPS} "
+        f"each, alternated: " + ", ".join(f"{k} {[round(x, 1) for x in v]}"
+                                          for k, v in ms.items())
+        + "), arenas byte-identical; the resident plane's cold rebuild "
+        f"{plane_ms[('native', 'cold')]:.1f} / {plane_ms[('plain', 'cold')]:.1f} ms and "
+        f"its distro-set change ({plane_ms[('native', 'how')]}) "
+        f"{plane_ms[('native', 'distro-set')]:.1f} / {plane_ms[('plain', 'distro-set')]:.1f} "
+        f"ms (native / plain), arenas byte-identical and equal to cold builds")
+    # the stores and snapshots are cyclic garbage: collect it now, before
+    # the card's work, where a full collection would stall the ticks
+    import gc
+
+    gc.collect()
+    return {"native_ms": med["native"], "plain_ms": med["plain"]}
+
+
 def live_children() -> list:
     """The pids of this process's children that are still running (not
     zombies), but multiprocessing's resource tracker, which ends when this
@@ -8490,10 +8893,11 @@ def recovery_counts(report) -> dict:
 def main() -> int:
     profile_dir = None
     sweep_mode = sys.argv[1:] == ["--sweep"]
+    procs_mode = sys.argv[1:] == ["--procs"]
     if len(sys.argv) == 3 and sys.argv[1] == "--profile":
         profile_dir = sys.argv[2]
-    elif len(sys.argv) != 1 and not sweep_mode:
-        print("usage: chip_smoke.py [--profile OUT_DIR | --sweep]",
+    elif len(sys.argv) != 1 and not (sweep_mode or procs_mode):
+        print("usage: chip_smoke.py [--profile OUT_DIR | --sweep | --procs]",
               file=sys.stderr)
         return 2
     if not os.path.isdir(os.path.join(HERE, "evergreen_tpu_torch")):
@@ -8515,7 +8919,7 @@ def main() -> int:
     check(torch.cuda.device_count() == 1, "expected exactly one visible card")
     # phase 4's worker processes start now: their imports overlap the
     # backend probe and the build
-    workers = None if sweep_mode else start_stacked_workers()
+    workers = None if sweep_mode or procs_mode else start_stacked_workers()
 
     # the backend probe: a fresh interpreter must see the card
     from evergreen_tpu_torch.utils.torchenv import ensure_usable_backend
@@ -8581,6 +8985,15 @@ def main() -> int:
     build_s = _build.build(kernels)
     log(f"build: {time.perf_counter() - t0:.2f} s wall "
         + " ".join(f"{k}={s:.2f}s" for k, s in build_s.items()))
+    # the snapshot's C packer, built with g++ at first use like the JAX
+    # package's; never a silent fallback
+    from evergreen_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    packer = native.evgpack_status()
+    log(f"evgpack: evgpack_status() = {packer!r} in {time.perf_counter() - t0:.2f} s "
+        f"(g++ build of {os.path.relpath(native.SOURCE, HERE)} if none was built)")
+    check(packer == "native", f"evgpack_status() is {packer!r}: {native.build_error[-1500:]}")
     for k in kernels:
         logf = _build.build_log(k)
         if os.path.exists(logf):
@@ -8593,6 +9006,10 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     sm_mhz = float(clock.split()[0])
+    if procs_mode:
+        procs_timing()
+        print(smi)
+        return 0
     if workers is not None:
         waited = wait_stacked_workers(workers)
         log(f"phase 4's worker processes ready {time.perf_counter() - workers['t0']:.2f} s "
@@ -8621,7 +9038,7 @@ def main() -> int:
     build_snap_s = (time.perf_counter() - t0) / 3
     s0 = snaps["seed0"]
     log(f"config 3: generate {gen_s:.2f} s for two seeds, snapshot build "
-        f"{build_snap_s * 1e3:.0f} ms (host, pure Python); shape key "
+        f"{build_snap_s * 1e3:.0f} ms (host, the evgpack packer); shape key "
         f"(N,M,U,G,H,D,P,C) = {s0.shape_key()}; tasks {s0.n_tasks}, hosts "
         f"{s0.n_hosts}, distros {s0.n_distros}, segments {s0.n_segs}")
     # ---- 2. kernels against their plain versions on the card -------------- #
@@ -8897,8 +9314,10 @@ def main() -> int:
     walls.update({f"scenario process: {k}": v for k, v in scenarios["walls"].items()})
     scen_launches = dict(scenarios["launches"])
     add_launches(scen_launches, replayed)
+    procs_launches = scenarios["procs"]
     log(f"the scenario process's card launches {scenarios['launches']}, the replay "
-        f"process's {replayed}")
+        f"process's {replayed}; its proc replays' (step 5: the leader's and every worker "
+        f"life's) {procs_launches}")
 
     # ---- result ------------------------------------------------------------ #
     log("phase walls (s; the fleet process's beside phases 9, 6, 7 and 10): "
@@ -8911,7 +9330,9 @@ def main() -> int:
     # 11's process fleet ("fleet": the leader's and every worker's), phase
     # 12's card environment (round 1 as "cron", the ticks after the push as
     # "ingest", the cold tick of the GraphQL round as "cold"), phase 13's
-    # service process ("rest") and the smoke process ("smoke"). The warm
+    # service process ("rest"), the smoke process ("smoke"), the scenario
+    # process's engine runs and the replay process ("scenarios") and its
+    # proc replays ("procs": their leaders' and workers', cold builds). The warm
     # card store and plane (b) of phases 8-9, the smoke process's store, and the
     # durable card stores of phases 10, 12 and 13, pack through their
     # resident planes: their fused_distro_stats ran on the slab layout and
@@ -8941,6 +9362,7 @@ def main() -> int:
         r["launches_by_path"]["cold"] = cold.get(r["name"], 0)
         r["launches_by_path"]["smoke"] = 0 if slab_only else smoke.get(r["name"], 0)
         r["launches_by_path"]["scenarios"] = scen_launches.get(r["name"], 0)
+        r["launches_by_path"]["procs"] = procs_launches.get(r["name"], 0)
         r["launches"] = sum(r["launches_by_path"].values())
     slab = service["slab_row"]
     slab["floor_ms"] = floor_ms
@@ -8956,7 +9378,8 @@ def main() -> int:
         "rest": rest.get("fused_distro_stats", 0),
         "cold": 0,
         "smoke": smoke.get("fused_distro_stats", 0),
-        "scenarios": 0}
+        "scenarios": 0,
+        "procs": 0}
     slab["launches"] = sum(slab["launches_by_path"].values())
     rows.append(slab)
     # the byte and chain bounds behind bound_ms are in the log lines above

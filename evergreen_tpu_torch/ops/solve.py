@@ -706,6 +706,13 @@ def split_outputs(buf_np: np.ndarray, shape_key) -> Dict[str, np.ndarray]:
     return out
 
 
+#: the solves this process ran on the card through ``run_solve_packed``
+#: and the capacity trip counts they carried in all: a shard worker
+#: reports them beside its kernel counters, so that a harness holds the
+#: launches of a process it cannot see into to the solves that made them
+CARD_SOLVES = {"solves": 0, "capacity_iters": 0}
+
+
 def run_solve_packed(snapshot, device=None) -> Dict[str, np.ndarray]:
     """One solve: three arena buffers up, one packed result down. On the
     card it synchronises before the fetch, so a span around this call
@@ -714,5 +721,7 @@ def run_solve_packed(snapshot, device=None) -> Dict[str, np.ndarray]:
     dev = resolve_device(device)
     buf = dispatch_solve_packed(snapshot, dev)
     if dev.type == "cuda":
+        CARD_SOLVES["solves"] += 1
+        CARD_SOLVES["capacity_iters"] += capacity_iters(snapshot)
         torch.cuda.synchronize(dev)
     return fetch_solve_packed(buf, snapshot)

@@ -115,11 +115,32 @@ def remove_entry(data_dir: str, shard: int,
             pass
 
 
+#: the far ends of ``half_open`` socketpairs, kept for the process's
+#: life: a collected end would reset the near one, and the fault would
+#: become a plain connect error instead of a peer that never answers
+_half_open_peers: list = []
+
+
 def connect(sock_path: str, timeout_s: float = 5.0) -> socket.socket:
     """Connect to a worker's control socket; raises OSError when the
-    worker is gone (the adoption probe's failure path). The JAX package's
-    ``sock.adopt`` transport-fault seam is left out with the other
-    transport faults (``ipc.send`` / ``ipc.recv``)."""
+    worker is gone (the adoption probe's failure path).
+
+    The ``sock.adopt`` transport seam (``utils/faults.py``): ``drop`` and
+    ``partition`` refuse the connect (the supervisor cold-spawns instead);
+    ``half_open`` hands back a connected socket whose peer never answers,
+    which ``FleetSupervisor._try_adopt``'s deadline bounds."""
+    from ..utils import faults
+
+    directive = faults.fire("sock.adopt")
+    if directive in ("drop", "partition"):
+        import errno
+
+        raise OSError(errno.ECONNREFUSED,
+                      f"injected {directive} at sock.adopt: {sock_path}")
+    if directive == "half_open":
+        ours, theirs = socket.socketpair(socket.AF_UNIX, socket.SOCK_STREAM)
+        _half_open_peers.append(theirs)
+        return ours
     conn = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
     conn.settimeout(timeout_s)
     conn.connect(sock_path)

@@ -51,8 +51,16 @@ behind a front store's REST surface, whose ``GET /rest/v2/admin/fleet``
 serves ``fleet_state`` (``peek_fleet_supervisor``); ``service --shards``
 attaches it. IPC taps (``add_ipc_tap``) see every command sent to a
 worker and every message read from one (``scenarios/trace.py``'s
-``TraceRecorder``). Left out (ROADMAP Queue 1): the transport-fault seams
-``ipc.send`` / ``ipc.recv`` / ``sock.adopt``.
+``TraceRecorder``).
+
+**Transport chaos** (``utils/faults.py``). ``WorkerHandle.send`` fires
+``ipc.send`` then ``ipc.send.<shard>`` before its send lock, and the
+reader fires ``ipc.recv`` then ``ipc.recv.<shard>`` for each message it
+reads: ``drop`` / ``partition`` / ``half_open`` black-hole the message,
+``reorder`` swaps it with the next one, ``duplicate`` delivers it twice.
+The adoption connect fires ``sock.adopt`` (``runtime/manifest.py``).
+``worker_stderr="devnull"`` silences the workers' stderr (the scenario
+harness's induced crashes); ``"inherit"`` passes it through.
 """
 from __future__ import annotations
 
@@ -69,6 +77,7 @@ from typing import Dict, List, Optional
 import torch
 
 from ..device import resolve_device
+from ..utils import faults as _faults
 from ..utils import lockcheck as _lockcheck
 from ..utils import metrics as _metrics
 from ..utils.log import get_logger
@@ -234,6 +243,10 @@ class WorkerHandle:
         #: completed (answered or timed-out) request ids — a late or
         #: duplicated reply for one of these is counted and dropped
         self._done_reqs: Dict[int, None] = {}
+        #: a ``reorder`` directive holds one message per direction until
+        #: the next one has gone out (the adjacent swap)
+        self._send_hold: Optional[dict] = None
+        self._recv_hold: Optional[dict] = None
 
     @property
     def epoch(self) -> int:
@@ -296,12 +309,33 @@ class WorkerHandle:
         if self.sup_epoch and "sup" not in msg:
             # every command carries the supervisor fencing epoch
             msg["sup"] = self.sup_epoch
+        # transport chaos: the generic seam, then the shard's, before the
+        # send lock so a delay cannot serialize the other shards' commands
+        directive = (_faults.fire("ipc.send")
+                     or _faults.fire(f"ipc.send.{self.shard}"))
+        if directive in ("drop", "partition", "half_open"):
+            # black-holed: the sender sees success; the reply timeout or
+            # the worker's command-silence deadline detects it
+            return True
         w = self.proc.stdin if self.proc is not None else self._conn_w
         if w is None:
             return False
+        if directive == "reorder" and self._send_hold is None:
+            self._send_hold = dict(msg)
+            return True
         if _IPC_TAPS:
             _tap_ipc("send", self.shard, msg)
-        return send_msg(w, self.send_lock, **msg)
+        ok = send_msg(w, self.send_lock, **msg)
+        if ok and directive == "duplicate":
+            # at-least-once: sup-epoch fencing and idempotent ops absorb it
+            send_msg(w, self.send_lock, **msg)
+        held, self._send_hold = self._send_hold, None
+        if ok and held is not None:
+            # the held message goes out after this one
+            if _IPC_TAPS:
+                _tap_ipc("send", self.shard, held)
+            send_msg(w, self.send_lock, **held)
+        return ok
 
     def next_req(self) -> int:
         self._req_counter += 1
@@ -347,11 +381,6 @@ class WorkerHandle:
 
 
 class FleetSupervisor:
-    #: the service cadence (``run_background``), and the spacing of the
-    #: harness's virtual recovery clock across restarts
-    TICK_S = 15.0
-    #: per-shard wait on one reply of a round or a handoff leg
-    ROUND_TIMEOUT_S = 60.0
     #: a worker that stayed ready this long before dying is treated as
     #: having recovered — its NEXT restart starts the backoff ladder over
     BACKOFF_RESET_AFTER_S = 60.0
@@ -378,6 +407,9 @@ class FleetSupervisor:
         solver_lease_ttl_s: float = 5.0,
         solver_timeout_s: float = 10.0,
         device=None,
+        tick_s: float = 15.0,
+        round_timeout_s: float = 60.0,
+        worker_stderr: str = "inherit",
     ) -> None:
         #: the leader's and the workers' device: None is the CUDA card
         #: (raises without one); "cpu" only when the caller asks for it
@@ -388,6 +420,17 @@ class FleetSupervisor:
         #: each round's ``fleet.round`` span (None: the global ring)
         self.front_store = front_store
         self.ttl_s = ttl_s
+        #: the service cadence (``run_background``) and the spacing of the
+        #: harness's virtual recovery clock across restarts
+        self.tick_s = tick_s
+        #: per-shard wait on one reply of a round or a handoff leg
+        self.round_timeout_s = round_timeout_s
+        #: "inherit": the workers' stderr (logs, tracebacks) is this
+        #: process's; "devnull": silenced
+        if worker_stderr not in ("inherit", "devnull"):
+            raise ValueError("worker_stderr must be 'inherit' or 'devnull', "
+                             f"not {worker_stderr!r}")
+        self.worker_stderr = worker_stderr
         self.hb_interval_s = hb_interval_s
         self.hb_deadline_s = (hb_deadline_s if hb_deadline_s is not None
                               else max(4.0 * hb_interval_s, 2.0))
@@ -412,7 +455,7 @@ class FleetSupervisor:
         #: 0 = exit on EOF
         self.orphan_grace_s = orphan_grace_s
         self.orphan_tick_s = (orphan_tick_s if orphan_tick_s is not None
-                              else self.TICK_S)
+                              else tick_s)
         #: worker-side command-staleness deadline (0 = off; the service
         #: CLI wires ShardingConfig.worker_command_silence_s)
         self.command_silence_s = command_silence_s
@@ -475,7 +518,7 @@ class FleetSupervisor:
             cmd.append("--harness")
         if self.recovery_anchor is not None:
             cmd += ["--recovery-now",
-                    str(self.recovery_anchor + self.rounds_done * self.TICK_S)]
+                    str(self.recovery_anchor + self.rounds_done * self.tick_s)]
         if first and shard in self.spawn_crash:
             cmd += ["--crash", self.spawn_crash[shard]]
         return cmd
@@ -491,6 +534,7 @@ class FleetSupervisor:
         h.proc = subprocess.Popen(
             self._worker_cmd(shard, first), cwd=self._repo_root,
             stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.DEVNULL if self.worker_stderr == "devnull" else None,
             text=True, encoding="utf-8",
         )
         h.pid = h.proc.pid
@@ -505,7 +549,20 @@ class FleetSupervisor:
                 if msg is None:
                     h.garbage_lines += 1
                     continue
+                directive = (_faults.fire("ipc.recv")
+                             or _faults.fire(f"ipc.recv.{h.shard}"))
+                if directive in ("drop", "partition", "half_open"):
+                    continue  # the reply or heartbeat never arrives
+                if directive == "reorder" and h._recv_hold is None:
+                    h._recv_hold = msg
+                    continue
                 self._handle_recv(h, msg)
+                if directive == "duplicate":
+                    # wait_reply's request ids must reject the second copy
+                    self._handle_recv(h, dict(msg))
+                held, h._recv_hold = h._recv_hold, None
+                if held is not None:
+                    self._handle_recv(h, held)  # lands after its successor
         except (OSError, ValueError):
             pass  # channel torn down under us (simulate_crash, stop)
 
@@ -811,7 +868,7 @@ class FleetSupervisor:
                     h.send(**msg)
                 results: Dict[int, dict] = {}
                 for h in ready:
-                    reply = h.wait_reply("round", self.ROUND_TIMEOUT_S, req=reqs[h.shard])
+                    reply = h.wait_reply("round", self.round_timeout_s, req=reqs[h.shard])
                     if reply is None or reply.get("skipped"):
                         continue
                     results[h.shard] = reply
@@ -820,7 +877,7 @@ class FleetSupervisor:
                 if serve is not None:
                     # join so rounds stay strictly serialized (two serve
                     # threads on one segment set would race)
-                    serve.join(timeout=self.ROUND_TIMEOUT_S)
+                    serve.join(timeout=self.round_timeout_s)
             self.rounds_done += 1
             outcome = ("full" if len(results) == self.n_shards
                        else ("partial" if results else "empty"))
@@ -857,7 +914,7 @@ class FleetSupervisor:
         dispatch every free host; the ``agent_done`` replies by shard."""
         return self.broadcast(
             "agent_sim", "agent_done",
-            timeout_s=self.ROUND_TIMEOUT_S,
+            timeout_s=self.round_timeout_s,
             now=_time.time() if now is None else now,
         )
 
@@ -884,7 +941,7 @@ class FleetSupervisor:
         req = hs.next_req()
         hs.send(op="release", distro=distro_id, target=dst, seq=self._seq,
                 now=now or _time.time(), req=req)
-        released = hs.wait_reply("released", self.ROUND_TIMEOUT_S, req=req)
+        released = hs.wait_reply("released", self.round_timeout_s, req=req)
         if released is None:
             self._needs_reconcile = True
             FLEET_HANDOFFS.inc(shard=src, outcome="aborted")
@@ -893,14 +950,14 @@ class FleetSupervisor:
         rec = released["record"]
         req = hd.next_req()
         hd.send(op="prime", record=rec, req=req)
-        if hd.wait_reply("primed", self.ROUND_TIMEOUT_S, req=req) is None:
+        if hd.wait_reply("primed", self.round_timeout_s, req=req) is None:
             self._needs_reconcile = True
             FLEET_HANDOFFS.inc(shard=src, outcome="aborted")
             return None
         FLEET_HANDOFFS.inc(shard=src, outcome="primed")
         req = hs.next_req()
         hs.send(op="done", handoff=rec["_id"], req=req)
-        if hs.wait_reply("done", self.ROUND_TIMEOUT_S, req=req) is None:
+        if hs.wait_reply("done", self.round_timeout_s, req=req) is None:
             self._needs_reconcile = True
             return None
         FLEET_HANDOFFS.inc(shard=src, outcome="done")
@@ -931,7 +988,7 @@ class FleetSupervisor:
             reqs[k] = h.next_req()
             h.send(op="load", req=reqs[k])
         for k in hot:
-            reply = self.handles[k].wait_reply("load", self.ROUND_TIMEOUT_S, req=reqs[k])
+            reply = self.handles[k].wait_reply("load", self.round_timeout_s, req=reqs[k])
             if reply is None:
                 continue
             loads[k] = dict(reply.get("groups", {}))
@@ -974,12 +1031,12 @@ class FleetSupervisor:
                     continue
                 req = hd.next_req()
                 hd.send(op="prime", record=rec, req=req)
-                if hd.wait_reply("primed", self.ROUND_TIMEOUT_S, req=req) is None:
+                if hd.wait_reply("primed", self.round_timeout_s, req=req) is None:
                     deferred = True
                     continue
                 req = hs.next_req()
                 hs.send(op="done", handoff=rec["_id"], req=req)
-                if hs.wait_reply("done", self.ROUND_TIMEOUT_S, req=req) is None:
+                if hs.wait_reply("done", self.round_timeout_s, req=req) is None:
                     deferred = True
                     continue
                 FLEET_HANDOFFS.inc(shard=src, outcome="reconciled")
@@ -994,9 +1051,9 @@ class FleetSupervisor:
     # -- service cadence --------------------------------------------------- #
 
     def run_background(self) -> None:
-        """Service mode: drive rounds every ``TICK_S`` until stop()."""
+        """Service mode: drive rounds every ``tick_s`` until stop()."""
         def loop():
-            while not self._stop.wait(self.TICK_S):
+            while not self._stop.wait(self.tick_s):
                 try:
                     self.round()
                 except Exception as exc:  # noqa: BLE001 — a failed round

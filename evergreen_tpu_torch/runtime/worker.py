@@ -22,7 +22,10 @@ over stdin, one newline-JSON message per line (``runtime/protocol.py``):
     (``scheduler/sharded_plane.py``);
   * ``status`` answers the unfinished-task count, the tick index, the
     lease epoch and, a field of the port's own, this process's kernel
-    launch counters (``launches``);
+    launch counters (``launches``), which each ``round`` reply also
+    carries, with the tick's ``planner`` and the card solves of
+    ``ops/solve.py::run_solve_packed`` behind the counters
+    (``card_solves``);
   * ``drain`` flushes the async WAL flusher and stops populating;
     ``shutdown`` additionally checkpoints, releases the lease and
     exits 0.
@@ -93,6 +96,16 @@ from typing import List, Optional
 from ..utils import lockcheck as _lockcheck
 from . import manifest
 from .protocol import EXIT_FENCED, EXIT_KERNEL, EXIT_LOST, parse_line, send_msg
+
+
+def _launches() -> dict:
+    """This process's kernel launch counters."""
+    from ..ops.distro_stats import fused_distro_stats
+    from ..ops.segment import segment_sum
+
+    return {"fused_distro_stats": fused_distro_stats.launches,
+            "segment_sum": segment_sum.launches,
+            "segment_sum_by_plan": dict(segment_sum.launches_by_plan)}
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -502,6 +515,13 @@ class ShardWorker:
             reply["solve"] = self.solver.last_solve
             reply["solve_cause"] = self.solver.last_cause
             reply["solve_stale_accepted"] = self.solver.stale_accepted
+        # the port's own fields: the tick's planner, this process's
+        # kernel counters and the card solves behind them
+        from ..ops.solve import CARD_SOLVES
+
+        reply["planner"] = res.planner_used
+        reply["launches"] = _launches()
+        reply["card_solves"] = dict(CARD_SOLVES)
         self.send(**reply)
         self.tick_index += 1
 
@@ -550,17 +570,13 @@ class ShardWorker:
 
     def op_status(self, msg: dict) -> None:
         from ..globals import TaskStatus
-        from ..ops.distro_stats import fused_distro_stats
-        from ..ops.segment import segment_sum
 
         unfinished = self.store.collection("tasks").count(
             lambda d: d["status"] not in (TaskStatus.SUCCEEDED.value,
                                           TaskStatus.FAILED.value))
         self.send(op="status", shard=self.shard, unfinished=unfinished,
                   tick=self.tick_index, epoch=self.lease.epoch,
-                  launches={"fused_distro_stats": fused_distro_stats.launches,
-                            "segment_sum": segment_sum.launches,
-                            "segment_sum_by_plan": dict(segment_sum.launches_by_plan)})
+                  launches=_launches())
 
     def _topology(self):
         from ..parallel.topology import ShardTopology

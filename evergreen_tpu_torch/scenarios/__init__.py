@@ -1,8 +1,8 @@
 """Trace-driven scenario engine: one harness that replays every weather.
 
-A copy of ``evergreen_tpu/scenarios/``'s in-process engine. Every replay
-runs the port's tick, its solves on the CUDA card unless the caller
-passes ``device="cpu"``. Public surface:
+A copy of ``evergreen_tpu/scenarios/``. Every replay runs the port's
+tick, its solves on the CUDA card unless the caller passes
+``device="cpu"``. Public surface:
 
   ``ScenarioSpec`` / ``Ev`` / ``SLO``  — the declarative vocabulary
   ``run_scenario(spec)``               — one seeded replay → scorecard entry
@@ -11,6 +11,11 @@ passes ``device="cpu"``. Public surface:
   ``FAULT_SCENARIO_CASES`` / ``OVERLOAD_SCENARIO_CASES`` /
   ``run_matrix_case``                  — the fault/overload matrix cases
                                          migrated to run THROUGH the engine
+  ``PROC_SCENARIOS`` / ``run_proc_scenario`` / ``run_crash_point``
+                                       — the child-process replay backend
+                                         (scenarios/procs.py): specs with
+                                         proc_kill/proc_hang events against
+                                         a supervised worker-process fleet
   ``generate_weather`` / ``campaign`` / ``shrink_spec`` /
   ``sabotage_selftest``                — the property-based weather fuzzer
                                          (scenarios/fuzz.py): seeded random
@@ -28,12 +33,6 @@ passes ``device="cpu"``. Public surface:
 
 ``python -m evergreen_tpu_torch replay-trace`` compiles a recorded trace
 and replays it; ``service --capture-trace`` records one.
-
-Not here yet: the child-process replay backend (the JAX package's
-``scenarios/procs.py``: ``PROC_SCENARIOS``, ``ProcScenarioRun``,
-``run_proc_scenario``, ``run_crash_point``), the library's
-``PROC_WEATHERS``, and the fuzzer's proc arm (``generate_proc_weather``
-raises ``NotImplementedError``).
 """
 from .engine import EVENT_HANDLERS, ScenarioRun, run_scenario
 from .fuzz import (
@@ -48,6 +47,12 @@ from .matrix import (
     FAULT_SCENARIO_CASES,
     OVERLOAD_SCENARIO_CASES,
     run_matrix_case,
+)
+from .procs import (
+    PROC_SCENARIOS,
+    ProcScenarioRun,
+    run_crash_point,
+    run_proc_scenario,
 )
 from .spec import DEFAULT_INVARIANTS, Ev, SLO, ScenarioSpec
 from .trace import (
@@ -66,6 +71,8 @@ __all__ = [
     "EVENT_HANDLERS",
     "FAULT_SCENARIO_CASES",
     "OVERLOAD_SCENARIO_CASES",
+    "PROC_SCENARIOS",
+    "ProcScenarioRun",
     "SABOTAGE_SCENARIOS",
     "SCENARIOS",
     "SLO",
@@ -77,7 +84,9 @@ __all__ = [
     "generate_proc_weather",
     "generate_weather",
     "load_regression_specs",
+    "run_crash_point",
     "run_matrix_case",
+    "run_proc_scenario",
     "run_scenario",
     "sabotage_selftest",
     "save_regression_spec",

@@ -10,7 +10,9 @@ disk faults at the storage seams (ENOSPC/EIO/short-write/bitrot against
 the WAL or a published snapshot, with the self-heal scrub scheduled
 behind them) — as a pure function of one integer seed, replayed
 deterministically
-under ``DEFAULT_INVARIANTS``.
+under ``DEFAULT_INVARIANTS``. A proc variant composes the child-process
+vocabulary (worker SIGKILLs at WAL seams, hangs, supervisor kills) for
+the supervised-fleet backend.
 
 Failures shrink automatically: ``shrink_spec`` is a delta-debugging
 loop (chunked event removal → single events → numeric arg shrinking →
@@ -21,15 +23,13 @@ reduction, so any red schedule collapses to a minimal timeline — which
 
 ``campaign`` is the time-boxed soak: seeds are enumerated from a pinned
 start so a CI window is reproducible, and the sabotage self-test (a
-deliberately corrupted dispatch book) proves the invariant layer still
+deliberately corrupted dispatch book, in both in-process and
+child-process modes) proves the invariant layer still
 bites before any green result is trusted.
 
-A copy of ``evergreen_tpu/scenarios/fuzz.py``'s in-process arm; every
-replay runs its solves on ``device`` (the card when None). The proc arm
-(``generate_proc_weather``, ``proc_fuzz_fingerprint``,
-``campaign(proc=True)``, ``sabotage_selftest(proc=True)``) drives worker
-processes through ``scenarios/procs.py``, which the port does not have
-yet: those raise ``NotImplementedError``.
+A copy of ``evergreen_tpu/scenarios/fuzz.py``; every replay runs its
+solves on ``device`` (the card when None), a proc weather's in worker
+processes through ``scenarios/procs.py``.
 
 When ``hypothesis`` is installed, ``weather_strategy()`` exposes the
 same generator as a strategy; absent the dep, the stdlib-seeded
@@ -43,6 +43,7 @@ import time as _time
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..globals import Provider
+from .procs import DEFAULT_PROC_INVARIANTS
 from .spec import (
     DEFAULT_INVARIANTS,
     Ev,
@@ -68,10 +69,8 @@ DURABLE_FAULT_SEAMS = ("wal.commit",)
 DISK_FAULT_TARGETS = ("wal", "snapshot")
 DISK_FAULT_KINDS = ("enospc", "bitrot", "short", "eio")
 
-_PROC_PENDING = (
-    "the fuzzer's proc arm runs scenarios/procs.py, the process backend, "
-    "which the port does not have yet"
-)
+#: seams the proc arm SIGKILLs workers at (crash-matrix vocabulary)
+PROC_KILL_SEAMS = ("wal.commit", "wal.append", "lease.renew")
 
 #: the network-chaos vocabulary the generator draws for agent-side
 #: lossy windows (scenarios/engine.py ev_net_fault seeds the window,
@@ -263,9 +262,84 @@ def generate_weather(seed: int, sabotage: bool = False) -> ScenarioSpec:
 
 def generate_proc_weather(seed: int,
                           sabotage: bool = False) -> ScenarioSpec:
-    """The supervised-fleet weather generator: it draws worker kills and
-    hangs for ``scenarios/procs.py``, which the port does not have yet."""
-    raise NotImplementedError(_PROC_PENDING)
+    """One randomized supervised-fleet weather (child-process backend):
+    a seeded workload partitioned across 1–2 real worker processes with
+    SIGKILLs at WAL seams, SIGSTOP hangs, or a supervisor kill+restart
+    drawn from the proc vocabulary. Sabotage forges a duplicate
+    dispatch CAS win directly into the seeded shard stores."""
+    rng = random.Random(int(seed) ^ 0x9E3779B9)
+    shards = rng.choice((1, 2))
+    workload = {
+        "shards": shards,
+        "distros": rng.choice((2, 4)),
+        "tasks": rng.choice((16, 24, 32)),
+        "seed": rng.randint(1, 10_000),
+        "hosts_per_distro": rng.randint(2, 3),
+    }
+    if sabotage:
+        workload["sabotage_duplicate_claim"] = True
+    events: List[Ev] = [Ev(0, "proc_fleet", workload)]
+    ticks = 12
+    if not sabotage:
+        storms = ["kill", "hang", "sup", "none"]
+        if shards == 2:
+            # solver-leader storms need a real 2-shard fleet: a
+            # 1-shard round never elects (stacking one shard is local)
+            storms.append("leader")
+        storm = rng.choice(tuple(storms))
+        if storm == "kill":
+            events.append(Ev(rng.randint(1, 3), "proc_kill", {
+                "worker": rng.randrange(shards),
+                "seam": rng.choice(PROC_KILL_SEAMS),
+            }))
+        elif storm == "hang":
+            events.append(Ev(rng.randint(1, 3), "proc_hang", {
+                "worker": rng.randrange(shards),
+            }))
+        elif storm == "sup":
+            at = rng.choice(("idle", "mid_round"))
+            t = rng.randint(1, 3)
+            events.append(Ev(t, "sup_kill", {"at": at}))
+            events.append(Ev(t + 1, "sup_restart", {}))
+            ticks = 14
+        elif storm == "leader":
+            # events[0] holds THIS dict: the solver plane opt-in and
+            # the both-shards load floor (the hash topology can land 2
+            # distros on one shard, starving the stack) ride along
+            workload["distros"] = 6
+            workload["tasks"] = 36
+            workload["solver"] = "auto"
+            workload["solver_timeout_s"] = 6.0
+            t = rng.randint(1, 3)
+            if rng.random() < 0.5:
+                events.append(Ev(t, "leader_kill", {
+                    "seam": rng.choice((
+                        "solver.round", "solver.publish",
+                        "solver.solve", "solver.return",
+                    )),
+                }))
+                events.append(Ev(t + 1, "sup_restart", {}))
+            else:
+                events.append(Ev(t, "leader_hang", {
+                    "seam": "solver.solve", "delay_s": 8.0,
+                }))
+            ticks = 14
+    return ScenarioSpec(
+        name=(f"fuzz-proc-sabotage-{seed}" if sabotage
+              else f"fuzz-proc-w{seed}"),
+        description=(
+            f"generated proc weather (seed {seed}): {shards}-shard "
+            f"supervised fleet"
+            + (", sabotaged dispatch books" if sabotage else "")
+        ),
+        ticks=ticks,
+        seed=int(seed),
+        durable=True,
+        deterministic=False,
+        events=events,
+        invariants=DEFAULT_PROC_INVARIANTS,
+        tier1=False,
+    )
 
 
 def weather_strategy(max_seed: int = 2**32 - 1):
@@ -287,22 +361,27 @@ def weather_strategy(max_seed: int = 2**32 - 1):
 
 def run_case(spec: ScenarioSpec,
              seed: Optional[int] = None, device=None) -> Dict:
-    """Replay one generated weather in process; a raising replay is a
-    RED entry (the fuzzer treats a crash as a failing schedule, never as
-    a skipped one). A missing card or a card fault (``KernelError``,
-    ``MirrorError``) is no schedule's finding: it raises."""
+    """Replay one generated weather on the backend its events name; a
+    raising replay is a RED entry (the fuzzer treats a crash as a
+    failing schedule, never as a skipped one). A missing card or a card
+    fault (``KernelError``, ``MirrorError``, a worker's
+    ``WorkerExitError``) is no schedule's finding: it raises."""
     from ..device import resolve_device
     from ..ops._build import KernelError
     from ..ops.resident_ops import MirrorError
+    from .procs import WorkerExitError
 
-    if any(e.kind == "proc_fleet" for e in spec.events):
-        raise NotImplementedError(_PROC_PENDING)
+    is_proc = any(e.kind == "proc_fleet" for e in spec.events)
     device = resolve_device(device)
     try:
         from .engine import run_scenario
 
+        if is_proc:
+            from .procs import run_proc_scenario
+
+            return run_proc_scenario(spec, seed=seed, device=device)
         return run_scenario(spec, seed=seed, device=device)
-    except (KernelError, MirrorError):
+    except (KernelError, MirrorError, WorkerExitError):
         raise
     except Exception as exc:  # noqa: BLE001 — the schedule crashed the
         # harness: that IS a finding, and it must shrink like one
@@ -346,9 +425,21 @@ def fails_matching(keys, device=None) -> Callable[[ScenarioSpec], bool]:
 
 
 def proc_fuzz_fingerprint(entry: Dict) -> str:
-    """The child-process replays' determinism surface; see
-    ``generate_proc_weather``."""
-    raise NotImplementedError(_PROC_PENDING)
+    """Determinism surface for child-process replays: verdicts and
+    converged workload state, not wall-clock shape (round counts and
+    dispatch interleavings vary with real scheduling; the contracts the
+    fuzzer enforces must not)."""
+    return scorecard_entry_fingerprint({
+        "name": entry.get("name"),
+        "seed": entry.get("seed"),
+        "ok": entry.get("ok"),
+        "invariants": entry.get("invariants", {}),
+        "checks": entry.get("checks", {}),
+        "slos": entry.get("slos", {}),
+        "unfinished_final": entry.get("stats", {}).get(
+            "unfinished_final"
+        ),
+    })
 
 
 # --------------------------------------------------------------------------- #
@@ -514,14 +605,11 @@ def campaign(
     ``start_seed``, replay each weather, shrink any failure and emit it
     as a regression spec. Returns the campaign report; ``ok`` means
     zero invariant violations found (sabotage runs EXPECT failures and
-    invert this). Replays run on ``device``; ``proc=True`` raises
-    ``NotImplementedError`` (see the module docstring)."""
+    invert this). Replays run on ``device``."""
     from . import trace
 
-    if proc:
-        raise NotImplementedError(_PROC_PENDING)
     t0 = _time.monotonic()
-    gen = generate_weather
+    gen = generate_proc_weather if proc else generate_weather
     failures: List[Dict] = []
     cases = 0
     while _time.monotonic() - t0 < time_budget_s:
@@ -555,7 +643,7 @@ def campaign(
                 )
         failures.append(finding)
     return {
-        "backend": "engine",
+        "backend": "procs" if proc else "engine",
         "start_seed": start_seed,
         "cases": cases,
         "elapsed_s": round(_time.monotonic() - t0, 2),
@@ -571,14 +659,13 @@ def sabotage_selftest(proc: bool = False,
     deliberately seeded invariant violation must be FOUND, shrink to a
     minimal timeline, and replay deterministically (same seed ⇒
     fingerprint-identical scorecard) on its backend. Replays run on
-    ``device``; ``proc=True`` raises ``NotImplementedError``."""
-    if proc:
-        raise NotImplementedError(_PROC_PENDING)
-    spec = generate_weather(seed, sabotage=True)
+    ``device``."""
+    gen = generate_proc_weather if proc else generate_weather
+    spec = gen(seed, sabotage=True)
     entry = run_case(spec, device=device)
     caught = not entry["ok"]
     result: Dict = {
-        "backend": "engine",
+        "backend": "procs" if proc else "engine",
         "seed": seed,
         "caught": caught,
         "red": red_keys(entry),
@@ -588,13 +675,16 @@ def sabotage_selftest(proc: bool = False,
         return result
     minimal = shrink_spec(
         spec, fails=fails_matching(result["red"], device=device),
-        max_runs=120,
+        max_runs=40 if proc else 120,
     )
     result["shrunk_events"] = len(minimal.events)
     result["shrunk_ticks"] = minimal.ticks
     e1 = run_case(minimal, device=device)
     e2 = run_case(minimal, device=device)
-    f1, f2 = e1.get("fingerprint"), e2.get("fingerprint")
+    if proc:
+        f1, f2 = proc_fuzz_fingerprint(e1), proc_fuzz_fingerprint(e2)
+    else:
+        f1, f2 = e1.get("fingerprint"), e2.get("fingerprint")
     result["still_caught"] = bool(
         set(result["red"]) & set(red_keys(e1))
     )

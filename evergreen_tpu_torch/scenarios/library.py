@@ -1,9 +1,9 @@
 """The shipped scenario library: the weathers and one sabotage.
 
-A copy of ``evergreen_tpu/scenarios/library.py``, less the process
-backend's weather: ``PROC_WEATHERS`` and its ``leader-death`` spec run
-worker processes under ``scenarios/procs.py``, which the port does not
-have yet, and come with it.
+A copy of ``evergreen_tpu/scenarios/library.py``. ``PROC_WEATHERS``
+holds the library's one process-backend weather, ``leader-death``, which
+runs worker processes under ``scenarios/procs.py`` (``run_proc_scenario``)
+and cannot run in the engine.
 
 Each spec is a declarative timeline over the engine's event vocabulary
 (scenarios/engine.py) plus named checks for the assertions the SLO
@@ -796,6 +796,74 @@ def _capacity_quota_squeeze(
             "pool_quotas": {"mock": 24},
         }},
     )
+
+
+def _leader_death() -> ScenarioSpec:
+    """The shipped solver-leader weather (proc backend, distinct from
+    the crash-matrix points): the fleet loses its BRAIN and then a
+    HAND in one run. The supervisor (= elected solver-leader) dies at
+    the stacked-solve seam; both workers degrade to local and orphan;
+    the successor adopts them and re-elects the solver lease at a
+    strictly higher epoch; then a worker is SIGKILLed at a WAL seam —
+    its fenced replacement must rejoin the shared-memory plane and the
+    fleet must return to fully stacked rounds with zero stale results
+    and zero leaked segments."""
+    from .procs import (
+        _SOLVER_WORKLOAD,
+        _check_solver_survived,
+        DEFAULT_PROC_INVARIANTS,
+        ProcScenarioRun,
+    )
+
+    def worker_rejoined(run: "ProcScenarioRun") -> Optional[str]:
+        # the victim is an ADOPTED process: the successor holds no
+        # Popen for it, so its exit code (86) is unobservable — the
+        # restart plus its OWN stacked reply after the kill tick are
+        # the proof it died and the replacement rejoined the shm plane
+        if run.stats.get("restarts_total", 0) < 1:
+            return "the killed worker was never restarted"
+        if not any(
+            rnd.get(1, {}).get("solve") == "stacked"
+            for i, rnd in enumerate(run.rounds) if i > 5
+        ):
+            return (
+                "the replacement worker never published into a "
+                "stacked round after the kill tick"
+            )
+        return _check_solver_survived(run)
+
+    return ScenarioSpec(
+        name="leader-death",
+        description="2-shard solver fleet: the leader dies at the "
+                    "stacked solve, the successor adopts and "
+                    "re-elects; then a worker is SIGKILLed — its "
+                    "fenced replacement rejoins the shm plane and "
+                    "stacked rounds resume",
+        ticks=16,
+        durable=True,
+        deterministic=False,
+        events=[
+            Ev(0, "proc_fleet", dict(_SOLVER_WORKLOAD)),
+            Ev(2, "leader_kill", {"seam": "solver.solve"}),
+            Ev(3, "sup_restart", {}),
+            Ev(5, "proc_kill", {"worker": 1, "seam": "wal.commit"}),
+        ],
+        slos=[
+            SLO("bounded-restarts", "restarts_total", "<=", 3),
+        ],
+        checks=[("worker-rejoined-after-leader-death",
+                 worker_rejoined)],
+        invariants=DEFAULT_PROC_INVARIANTS,
+        tier1=False,
+    )
+
+
+#: proc-backed weathers shipped with the library: these run real
+#: worker processes (``run_proc_scenario``), replayed alongside
+#: PROC_SCENARIOS — the engine cannot host them
+PROC_WEATHERS: Dict[str, callable] = {
+    "leader-death": _leader_death,
+}
 
 
 def _check_snapshot_healed(run) -> Optional[str]:

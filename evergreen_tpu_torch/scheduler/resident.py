@@ -89,6 +89,7 @@ from ..utils import lockcheck as _lockcheck
 from ..utils import metrics as _metrics
 from ..utils.circuit import CircuitBreaker
 from ..utils.log import get_logger
+from ..utils.native import get_evgpack
 from ..utils.tracing import Tracer
 from .snapshot import (
     _STATIC_ARENA_COLS,
@@ -97,9 +98,9 @@ from .snapshot import (
     _bucket,
     _pack_static,
     arena_for_dims,
-    build_memberships,
     pack_capacity_page,
     pack_distro_settings,
+    pack_memberships,
 )
 
 RESIDENT_EVENTS = _metrics.counter(
@@ -214,8 +215,9 @@ def _memberships(d: Distro, tasks: List[Task], n_d: int, di: int,
     n = len(tasks)
     seg_local = np.zeros(max(n, 1), np.int32)
     dm_local = np.ones(max(n, 1), np.uint8)
-    nu, mt, mu, snames, smax = build_memberships(
-        d, tasks, 0, 0, di, n_d, seg_local, deps_met, dm_local,
+    nu, mt, mu, snames, smax = pack_memberships(
+        get_evgpack(), d, tasks, 0, 0, di, n_d, seg_local, deps_met,
+        dm_local,
     )
     return (tasks, bool(d.planner_settings.group_versions), nu, mt, mu,
             snames, smax, seg_local, dm_local)
@@ -1260,8 +1262,9 @@ class ResidentPlane:
         dm_slice = c["t_deps_met"][t0:t0 + n_new] if n_new else np.ones(
             1, np.uint8
         )
-        nu, mt_arr, mu_arr, snames, smax = build_memberships(
-            d, new_list, t0, s.u0, s.di, s.g0, seg_slice, deps_met, dm_slice,
+        nu, mt_arr, mu_arr, snames, smax = pack_memberships(
+            get_evgpack(), d, new_list, t0, s.u0, s.di, s.g0, seg_slice,
+            deps_met, dm_slice,
         )
         if nu > s.ucap or len(mt_arr) > s.mcap:
             raise _NeedRelayout(f"units-or-edges:{s.did}")
@@ -1508,7 +1511,7 @@ class ResidentPlane:
         """Pack static columns for ``tasks`` into rows [row0, row0+n)."""
         if not tasks:
             return
-        scols = _pack_static(tasks)
+        scols = _pack_static(tasks, get_evgpack())
         sl = slice(row0, row0 + len(tasks))
         c = self.cols
         for name in _STATIC_ARENA_COLS:
@@ -1521,7 +1524,7 @@ class ResidentPlane:
     def _pack_static_scatter(
         self, rows: List[int], tasks: List[Task]
     ) -> None:
-        scols = _pack_static(tasks)
+        scols = _pack_static(tasks, get_evgpack())
         idx = np.asarray(rows, np.int64)
         c = self.cols
         for name in _STATIC_ARENA_COLS:

@@ -1,7 +1,7 @@
 """Snapshot builder: domain documents → the packed solve's arena buffers.
 
-Counterpart of ``evergreen_tpu/scheduler/snapshot.py`` without its
-native packer: one host-side pass that fills
+Counterpart of ``evergreen_tpu/scheduler/snapshot.py``: one host-side
+pass that fills
 
   * task feature arrays [N]   (priority, requester flags, durations, …)
   * unit-membership edges [M] (task → planner unit)
@@ -12,6 +12,10 @@ native packer: one host-side pass that fills
 as views into three typed arenas (``ops/packing.py``). For the same
 problem the buffers are byte-identical to the JAX package's, so both
 packages solve the very same input (``tests/test_torch_layout.py``).
+As in the JAX package, the evgpack C packer (``utils/native.py``) fills
+the per-task columns, the memberships, the deps-met flags and the host
+columns when it is built; the pure-Python pass beside each call is its
+plain version, and the buffers are byte-identical either way.
 A long-lived caller passes the membership memo and the arena pool that
 ``scheduler/wrapper.py::_snapshot_memos_for`` keeps per store; the
 resident state plane (``scheduler/resident.py``) reuses this module's
@@ -390,10 +394,11 @@ _STATIC_ARENA_COLS = (
 )
 
 
-def _pack_static(tasks: List[Task]) -> Dict[str, np.ndarray]:
+def _pack_static(tasks: List[Task], evgpack=None) -> Dict[str, np.ndarray]:
     """Static (time-independent) column block for one distro's tasks,
     plus the host-only scratch columns t_expected_floor_s / t_basis /
-    t_start."""
+    t_start: the evgpack pass when ``evgpack`` is given, else the
+    pure-Python body below (its plain version)."""
     n = len(tasks)
     cols: Dict[str, np.ndarray] = {
         "t_is_merge": np.zeros(n, np.uint8),
@@ -410,6 +415,11 @@ def _pack_static(tasks: List[Task]) -> Dict[str, np.ndarray]:
         "t_start": np.zeros(n, np.float64),
     }
     if not n:
+        return cols
+    if evgpack is not None:
+        evgpack.pack_task_static_columns(
+            tasks, float(DEFAULT_TASK_DURATION_S), cols
+        )
         return cols
     merge_flags = [
         is_github_merge_queue_requester(t.requester) for t in tasks
@@ -438,6 +448,23 @@ def _pack_static(tasks: List[Task]) -> Dict[str, np.ndarray]:
     cols["t_expected_s"][:] = exp64
     cols["t_expected_floor_s"][:] = np.floor(exp64)
     return cols
+
+
+def pack_memberships(evgpack, d: Distro, tasks: List[Task], base: int,
+                     unit_base: int, di: int, named_base: int, seg_slice,
+                     deps_met, dm_slice):
+    """``build_memberships`` of one distro, by the evgpack pass when
+    ``evgpack`` is given: (n_units, membership task indices, membership
+    unit indices, segment names, per-segment max hosts)."""
+    if evgpack is None:
+        return build_memberships(d, tasks, base, unit_base, di, named_base,
+                                 seg_slice, deps_met, dm_slice)
+    nu, mt, mu, _gkeys, snames, smax = evgpack.build_memberships(
+        tasks, bool(d.planner_settings.group_versions), base, unit_base, di,
+        named_base, seg_slice, deps_met, dm_slice, False,
+    )
+    return (nu, np.frombuffer(mt, np.int32), np.frombuffer(mu, np.int32),
+            snames, smax)
 
 
 def _memb_equivalent(old_tasks: List[Task], tasks: List[Task]) -> bool:
@@ -495,6 +522,9 @@ def build_snapshot(
     fields), stored base-relative and rebased with one vectorized add,
     so a warm build stays byte-identical to a cold one. ``arena_pool``
     leases the arena's buffers (``Snapshot.arena.close`` returns them)."""
+    from ..utils.native import get_evgpack
+
+    evgpack = get_evgpack()
     n_d = len(distros)
 
     # ---- flatten tasks + build planner unit memberships ------------------- #
@@ -543,7 +573,7 @@ def build_snapshot(
             (_, _, n_units_d, mt_local, mu_local, snames, smax, seg_local,
              scols) = entry
             if soft_hit:
-                scols = _pack_static(tasks)
+                scols = _pack_static(tasks, evgpack)
                 memb_memo[d.id] = (gv, tasks, n_units_d, mt_local, mu_local,
                                    snames, smax, seg_local, scols)
             # rebase the cached local ids into this build's coordinates
@@ -555,7 +585,9 @@ def build_snapshot(
                     np.where(seg_local < 0, np.int32(di),
                              seg_local + np.int32(named_base)),
                 )
-                if deps_met is not None:
+                if evgpack is not None:
+                    evgpack.fill_deps_met(tasks, deps_met, dm_slice)
+                elif deps_met is not None:
                     dm_slice[:] = np.fromiter(
                         (deps_met.get(t.id, True) for t in tasks),
                         np.uint8, len(tasks),
@@ -563,11 +595,11 @@ def build_snapshot(
                 else:
                     dm_slice[:] = 1
         else:
-            n_units_d, mt_arr, mu_arr, snames, smax = build_memberships(
-                d, tasks, base, unit_base, di, named_base, seg_slice,
-                deps_met, dm_slice,
+            n_units_d, mt_arr, mu_arr, snames, smax = pack_memberships(
+                evgpack, d, tasks, base, unit_base, di, named_base,
+                seg_slice, deps_met, dm_slice,
             )
-            scols = _pack_static(tasks)
+            scols = _pack_static(tasks, evgpack)
             if memb_memo is not None:
                 # stored base-relative: grouped segments as local
                 # ordinals, ungrouped (== di) as -1
@@ -635,17 +667,40 @@ def build_snapshot(
         h_counts.append(len(hs))
     n_h = len(flat_hosts)
     h_distro_np = np.repeat(d_arange, h_counts)
-    ests = [
-        running_estimates.get(h.id) if h.running_task else None
-        for h in flat_hosts
-    ]
+    # the host state columns, into temporaries (the arena does not exist
+    # until the dims are known), and the hosts running a task-group task
+    hcols = {
+        "h_free": np.zeros(max(n_h, 1), np.uint8),
+        "h_running": np.zeros(max(n_h, 1), np.uint8),
+        "h_elapsed_s": np.zeros(max(n_h, 1), np.float32),
+        "h_expected_s": np.zeros(max(n_h, 1), np.float32),
+        "h_std_s": np.zeros(max(n_h, 1), np.float32),
+    }
+    named_hosts: List[Tuple[int, str]] = []
+    if evgpack is not None and n_h:
+        named_hosts = evgpack.pack_host_columns(
+            flat_hosts, running_estimates, hcols
+        )
+    elif n_h:
+        ests = [
+            running_estimates.get(h.id) if h.running_task else None
+            for h in flat_hosts
+        ]
+        hcols["h_free"][:n_h] = [h.is_free() for h in flat_hosts]
+        hcols["h_running"][:n_h] = [e is not None for e in ests]
+        hcols["h_elapsed_s"][:n_h] = [e.elapsed_s if e else 0.0 for e in ests]
+        hcols["h_expected_s"][:n_h] = [e.expected_s if e else 0.0 for e in ests]
+        hcols["h_std_s"][:n_h] = [e.std_dev_s if e else 0.0 for e in ests]
+        named_hosts = [
+            (i, h.task_group_string()) for i, h in enumerate(flat_hosts)
+            if h.running_task and h.running_task_group
+        ]
     # default segment = the distro's "" segment; hosts running a
     # task-group task map to that group's segment (appended if new,
     # before dims are computed)
     h_seg_np = h_distro_np.copy()
-    for i, h in enumerate(flat_hosts):
-        if h.running_task and h.running_task_group:
-            h_seg_np[i] = seg_for(int(h_distro_np[i]), h.task_group_string())
+    for i, name in named_hosts:
+        h_seg_np[i] = seg_for(int(h_distro_np[i]), name)
     n_g = len(seg_names)
 
     # ---- padded arena allocation ------------------------------------------ #
@@ -766,11 +821,8 @@ def build_snapshot(
     fill("h_distro", h_distro_np, pad=D - 1)
     fill("h_seg", h_seg_np, pad=G - 1)
     if n_h:
-        a["h_free"][:n_h] = [h.is_free() for h in flat_hosts]
-        a["h_running"][:n_h] = [e is not None for e in ests]
-        a["h_elapsed_s"][:n_h] = [e.elapsed_s if e else 0.0 for e in ests]
-        a["h_expected_s"][:n_h] = [e.expected_s if e else 0.0 for e in ests]
-        a["h_std_s"][:n_h] = [e.std_dev_s if e else 0.0 for e in ests]
+        for name, col in hcols.items():
+            a[name][:n_h] = col[:n_h]
 
     # distro settings matrix
     fill("d_valid", [True] * n_d)

@@ -52,6 +52,16 @@ firing is counted in ``faults_fired_total{seam}`` and logged. Seams:
   ``events.deliver``  one outbox row's delivery in the drain
                       (events/transports.py): a raise costs the row an
                       attempt
+  ``ipc.send``        a supervisor command to a shard worker
+                      (runtime/supervisor.py ``WorkerHandle.send``), then
+                      ``ipc.send.<shard>``; ``drop``, ``partition`` and
+                      ``half_open`` black-hole it, ``reorder`` swaps it
+                      with the next one, ``duplicate`` sends it twice
+  ``ipc.recv``        a message read from a shard worker, then
+                      ``ipc.recv.<shard>``, with the same directives
+  ``sock.adopt``      the adoption connect to a worker's control socket
+                      (runtime/manifest.py): ``drop`` and ``partition``
+                      refuse it, ``half_open`` connects to a silent peer
   ``replica.tail``    one poll of a WAL-tailing replica
                       (storage/replica.py); ``drop``, ``partition`` and
                       ``half_open`` make it read nothing, so the applied

@@ -7,7 +7,7 @@ verdicts and fingerprints, the shrinker reduces a planted violation to
 JAX's minimal timeline, the sabotage self-test catches its forged claim,
 and ``utils/proptest.py`` draws what JAX's draws. The JAX tick runs with
 the ``x64`` alias (``tests/test_torch_scenarios.py``). The proc arm is
-not ported: its entry points raise.
+``tests/test_torch_fuzz_procs.py``'s.
 """
 from __future__ import annotations
 
@@ -186,16 +186,6 @@ def test_run_case_turns_a_crash_red_but_raises_a_card_fault(monkeypatch, fresh):
     with pytest.raises(KernelError):
         cpu_case(t_fuzz.generate_weather(1))
 
-
-@pytest.mark.parametrize("call", [
-    lambda: t_fuzz.generate_proc_weather(7),
-    lambda: t_fuzz.proc_fuzz_fingerprint({}),
-    lambda: t_fuzz.campaign(max_cases=1, proc=True, device="cpu"),
-    lambda: t_fuzz.sabotage_selftest(proc=True, device="cpu"),
-])
-def test_proc_arm_waits_for_the_process_backend(call):
-    with pytest.raises(NotImplementedError, match="procs.py"):
-        call()
 
 
 def test_proptest_draws_match_jax():

@@ -6,6 +6,7 @@ the originals and the port's arena buffers byte-identical to the JAX
 package's for the same problem, and check that the port imports nothing
 of JAX or ``evergreen_tpu``.
 """
+import contextlib
 import dataclasses
 import inspect
 import random
@@ -1360,10 +1361,10 @@ def test_graphql_page_and_smoke_copies_match_the_jax_package():
 def test_scenario_engine_copies_match_the_jax_package():
     """The scenario engine's copies: the weathers', matrix cases' and
     event kinds' names, the invariants, the counter prefixes of a
-    scorecard entry, the fuzzer's vocabulary, and the checked-in
+    scorecard entry, the fuzzer's vocabulary, the process backend's
+    event kinds, invariants, weathers and workloads, and the checked-in
     regression specs byte for byte. The engine's modules import no
-    ``torch`` themselves (their device work is the tick's); the process
-    backend's names wait for its slice."""
+    ``torch`` themselves (their device work is the tick's)."""
     import ast
     import os
 
@@ -1371,6 +1372,8 @@ def test_scenario_engine_copies_match_the_jax_package():
     from evergreen_tpu.scenarios import engine as j_engine
     from evergreen_tpu.scenarios import fuzz as j_fuzz
     from evergreen_tpu.scenarios import invariants as j_inv
+    from evergreen_tpu.scenarios import library as j_library
+    from evergreen_tpu.scenarios import procs as j_procs
     from evergreen_tpu.scenarios import spec as j_spec
     from evergreen_tpu.scenarios import trace as j_trace
     import evergreen_tpu_torch.scenarios as t_sc
@@ -1378,6 +1381,7 @@ def test_scenario_engine_copies_match_the_jax_package():
     from evergreen_tpu_torch.scenarios import fuzz as t_fuzz
     from evergreen_tpu_torch.scenarios import invariants as t_inv
     from evergreen_tpu_torch.scenarios import library as t_library
+    from evergreen_tpu_torch.scenarios import procs as t_procs
     from evergreen_tpu_torch.scenarios import spec as t_spec
     from evergreen_tpu_torch.scenarios import trace as t_trace
 
@@ -1395,14 +1399,18 @@ def test_scenario_engine_copies_match_the_jax_package():
     assert list(t_inv.INVARIANT_CHECKS) == list(j_inv.INVARIANT_CHECKS)
     for name in ("DEFAULT_CAMPAIGN_SEED", "SAFE_FAULT_SEAMS", "DURABLE_FAULT_SEAMS",
                  "DISK_FAULT_TARGETS", "DISK_FAULT_KINDS", "NET_FAULT_KINDS",
-                 "_SHRINKABLE_INTS"):
+                 "_SHRINKABLE_INTS", "PROC_KILL_SEAMS"):
         assert getattr(t_fuzz, name) == getattr(j_fuzz, name), name
+    for name in ("PROC_EVENT_KINDS", "DEFAULT_PROC_INVARIANTS", "TICK_S", "LEASE_TTL_S",
+                 "SUP_KILL_SCENARIOS", "SOLVER_SCENARIOS", "_SOLVER_WORKLOAD"):
+        assert getattr(t_procs, name) == getattr(j_procs, name), name
+    assert list(t_procs.PROC_SCENARIOS) == list(j_procs.PROC_SCENARIOS)
+    assert len(t_procs.PROC_SCENARIOS) == 10
+    assert list(t_procs.PROC_INVARIANT_CHECKS) == list(j_procs.PROC_INVARIANT_CHECKS)
+    assert list(t_library.PROC_WEATHERS) == list(j_library.PROC_WEATHERS) == ["leader-death"]
     assert t_trace._LOG_EVENT_MARKERS == j_trace._LOG_EVENT_MARKERS
     assert t_trace._REPLAYABLE_PROVIDERS == j_trace._REPLAYABLE_PROVIDERS
-    public = set(j_sc.__all__) - {"PROC_SCENARIOS", "ProcScenarioRun",
-                                  "run_crash_point", "run_proc_scenario"}
-    assert set(t_sc.__all__) == public
-    assert not hasattr(t_library, "PROC_WEATHERS")
+    assert set(t_sc.__all__) == set(j_sc.__all__)
     names = sorted(os.listdir(j_trace.REGRESSIONS_DIR))
     assert names == sorted(os.listdir(t_trace.REGRESSIONS_DIR)) and len(names) == 2
     for name in names:
@@ -1420,3 +1428,157 @@ def test_scenario_engine_copies_match_the_jax_package():
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 assert all(a.name.split(".")[0] != "torch" for a in node.names), path
+
+
+# --------------------------------------------------------------------------- #
+# the evgpack C packer (utils/native.py)
+# --------------------------------------------------------------------------- #
+
+
+@contextlib.contextmanager
+def plain_packer():
+    """The port's snapshot builder on its pure-Python packer for the
+    block's duration (what ``EVG_DISABLE_NATIVE`` selects at start)."""
+    from evergreen_tpu_torch.utils import native
+
+    saved = native._module, native._attempted
+    native._module, native._attempted = None, True
+    try:
+        yield
+    finally:
+        native._module, native._attempted = saved
+
+
+def test_evgpack_source_is_the_jax_packers():
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "native", "evgpack", "evgpack.cpp"), "rb") as fh:
+        want = fh.read()
+    with open(os.path.join(repo, "evergreen_tpu_torch", "csrc", "evgpack.cpp"), "rb") as fh:
+        assert fh.read() == want
+
+
+def _problems():
+    for n_distros, n_tasks, seed, kw in GENERATED:
+        yield (f"generated-{n_distros}-{n_tasks}",
+               t_benchgen.generate_problem(n_distros, n_tasks, seed=seed, **kw),
+               j_benchgen.generate_problem(n_distros, n_tasks, seed=seed, **kw),
+               t_benchgen.NOW)
+    for seed in range(3):
+        distros, tbd, hbd, est, dm = random_problem(random.Random(seed))
+        yield (f"random-{seed}",
+               ([_port_copy(d, t_distro.Distro) for d in distros],
+                {k: [_port_copy(t, t_task.Task) for t in v] for k, v in tbd.items()},
+                {k: [_port_copy(h, t_host.Host) for h in v] for k, v in hbd.items()},
+                {k: _port_copy(e, t_serial.RunningTaskEstimate) for k, e in est.items()},
+                dm),
+               (distros, tbd, hbd, est, dm), PARITY_NOW)
+
+
+@pytest.mark.parametrize("name", [p[0] for p in _problems()])
+def test_native_and_plain_packers_give_the_jax_buffers(name):
+    """The port's snapshot on the evgpack packer and on its plain version,
+    cold and warm (a membership memo's identity hit refills only the
+    deps-met flags; a soft hit repacks the static columns), byte-identical
+    to each other and to the JAX package's."""
+    from evergreen_tpu_torch.utils import native
+
+    assert native.evgpack_status() == "native", native.build_error
+    _, t_prob, j_prob, now = next(p for p in _problems() if p[0] == name)
+    js = j_snapshot.build_snapshot(*j_prob, now)
+    native_snap = t_snapshot.build_snapshot(*t_prob, now)
+    with plain_packer():
+        plain_snap = t_snapshot.build_snapshot(*t_prob, now)
+    _assert_same_arena(js, native_snap)
+    _assert_same_arena(js, plain_snap)
+    distros, tbd, hbd, est, dm = t_prob
+    for packer in ("native", "plain"):
+        memo = {}
+        with (plain_packer() if packer == "plain" else contextlib.nullcontext()):
+            t_snapshot.build_snapshot(distros, tbd, hbd, est, dm, now, memb_memo=memo)
+            hard = t_snapshot.build_snapshot(distros, tbd, hbd, est, dm, now,
+                                             memb_memo=memo)
+            soft = t_snapshot.build_snapshot(
+                distros, {k: [dataclasses.replace(t) for t in v] for k, v in tbd.items()},
+                hbd, est, dm, now, memb_memo=memo)
+        _assert_same_arena(js, hard)
+        _assert_same_arena(js, soft)
+
+
+@pytest.mark.parametrize("seed", [3, 9])
+def test_resident_plane_packs_alike_on_both_packers(seed):
+    """The resident plane through ``test_torch_resident_plane``'s churn (a
+    distro added and one removed: distro-set rebuilds, per-distro
+    rebuilds, fast appends), on the evgpack packer and on its plain
+    version: the published arenas are byte-identical at every step."""
+    from test_torch_resident_plane import NOW, Side, capacity_page, churn, host_bufs
+    from test_torch_resident_plane import problem_docs
+
+    from evergreen_tpu_torch.scheduler import resident as t_resident
+    from evergreen_tpu_torch.scheduler import cache as t_cache
+    from evergreen_tpu_torch.storage import store as t_store
+
+    docs, extra = problem_docs(seed)
+    sides = {p: Side(t_store, t_cache, t_resident.ResidentPlane, docs)
+             for p in ("native", "plain")}
+    rng = random.Random(seed)
+    removed = []
+    for step in range(40):
+        now, page = NOW + step, capacity_page(step)
+        bufs = {}
+        for packer, side in sides.items():
+            with (plain_packer() if packer == "plain" else contextlib.nullcontext()):
+                _, snap = side.sync(now, page)
+            bufs[packer] = host_bufs(snap)
+            snap.arena.close()
+        for kind in bufs["native"]:
+            assert bufs["native"][kind].tobytes() == bufs["plain"][kind].tobytes(), (
+                step, kind)
+        _, write = churn(rng, step, docs, extra, removed)
+        for side in sides.values():
+            try:
+                write(side.store)
+            except KeyError:
+                pass
+    planes = [s.plane for s in sides.values()]
+    assert planes[0].stats() == planes[1].stats()
+    assert planes[0].rebuild_reasons.get("distro-set", 0) + planes[0].topology_splices == 2
+
+
+def test_evgpack_status_reads_disabled_and_build_failed(tmp_path, monkeypatch):
+    """``EVG_DISABLE_NATIVE`` selects the plain packer ("disabled"); a
+    source the compiler refuses is "build-failed", logged as
+    ``native-unavailable`` with the compiler's tail, and the snapshot
+    still builds (on the plain packer)."""
+    from evergreen_tpu_torch.utils import log as t_log
+    from evergreen_tpu_torch.utils import native
+
+    code = ("from evergreen_tpu_torch.utils import native; "
+            "print(native.evgpack_status(), native.get_evgpack())")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={**__import__("os").environ, "EVG_DISABLE_NATIVE": "1"},
+                         timeout=120, check=True).stdout.split()
+    assert out == ["disabled", "None"]
+
+    bad = tmp_path / "evgpack.cpp"
+    bad.write_text("this is not C++\n")
+    for name, value in (("SOURCE", str(bad)), ("BUILD_DIR", str(tmp_path / "build")),
+                        ("_module", None), ("_attempted", False),
+                        ("_status", "not-loaded"), ("build_error", "")):
+        monkeypatch.setattr(native, name, value)
+    records = []
+    t_log.add_sink(records.append)
+    try:
+        assert native.evgpack_status() == "build-failed"
+    finally:
+        t_log.remove_sink(records.append)
+    assert native.get_evgpack() is None and "error" in native.build_error
+    logged = [r for r in records if r["message"] == "native-unavailable"]
+    assert len(logged) == 1 and logged[0]["level"] == "error"
+    assert logged[0]["error"] and logged[0]["error"] in native.build_error
+    js = j_snapshot.build_snapshot(*j_benchgen.generate_problem(4, 120, seed=11),
+                                   j_benchgen.NOW)
+    ts = t_snapshot.build_snapshot(*t_benchgen.generate_problem(4, 120, seed=11),
+                                   t_benchgen.NOW)
+    _assert_same_arena(js, ts)
