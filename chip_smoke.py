@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (evergreen_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--profile OUT_DIR | --sweep]
+    python3 chip_smoke.py [--profile OUT_DIR | --sweep | --procs | --crash |
+                           --timed N [ROOT] | --fleet-crash N]
 
 from the root of a checkout; it needs one card. Phases (any failure
 raises and exits non-zero; 6 and 7 run after phase 9's profiled round,
@@ -394,7 +395,8 @@ beside the fleet process, see phase 10):
    ``ok`` and ``deterministic``, its launch line exact for the device
    solves it prints. The scenario process (``start_scenario_child``,
    started with the fleet process and gated with it; its own temporary
-   directories under ``_smoke_scenarios/``) solves once at a weather's
+   directories under ``SCENARIO_ROOT``, in the system's temp dir) solves
+   once at a weather's
    dims, then on the card: (1) the 13 library weathers, the 2 checked-in
    regression specs and the 9 fault and overload matrix cases, each
    twice on the card and once on the CPU: every entry ok, the card's
@@ -425,14 +427,28 @@ beside the fleet process, see phase 10):
    self-test equal to its CPU twin; the leader's launches held exact
    against the stacked blocks it solved, each worker life's last
    reported counters against the card solves it reported (``ProcLog``,
-   ``proc_card_launches``);
+   ``proc_card_launches``). The crash process (``start_crash_child``,
+   started with the scenario process, its gate opened once the fleet
+   process has ended, joined once phase 13 has ended and before the
+   timed case) runs the crash matrix
+   (``evergreen_tpu_torch/scenarios/crash_matrix.py``, every child
+   process under the lock-order witness): a CPU child's uninterrupted
+   run of the single-store and of the 2-shard workload before its gate,
+   then on the card (``crash_round``) the kill points
+   ``CRASH_CARD_POINTS`` (each child killed at its seam, restarted,
+   converged to the CPU's state, epochs [1, 2], invariants held), the
+   two-process failover (the SIGCONTed holder fenced, no
+   superseded-epoch frame past the fence point) and the handoff point
+   ``CRASH_SHARDED_POINT`` on a 2-shard plane; each child life's
+   launches exact for the card solves it reported (``crash_lives``);
 14. a JSON line of the kernels (launches: phases 7–13, by path, phase
    8's loop as the path "loop", phase 10's in-memory control store as
    "durable control", phase 12's card environment as "cron" (round 1)
    and "ingest" (the ticks after the push) and its cold tick as "cold",
    phase 13's service process as "rest", the smoke process as "smoke",
    the scenario process and phase 13's replay process as "scenarios",
-   the scenario process's proc replays (step 5) as "procs";
+   the scenario process's proc replays (step 5) as "procs", the crash
+   process's children as "crash";
    the other phases check theirs
    on lines of their own), the card's line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -445,7 +461,14 @@ built with other values of their design constants (``sweep``) and
 prints the card's line. ``--procs`` runs phase 1, then, instead of the
 rest, step 5 of the scenario process alone with every candidate of
 ``PROC_TIMING_WEATHERS`` and the proc self-test (``procs_timing``): the
-walls a slice reads to choose ``PROC_CARD_WEATHERS``.
+walls a slice reads to choose ``PROC_CARD_WEATHERS``. ``--crash`` runs
+phase 1, then the crash round alone (``crash_alone``). ``--timed N
+[ROOT]`` runs phase 1, then the timed case's round N times, its data
+under ROOT (default: the system's temp dir), every healthy commit split
+(``timed_rounds``, ``CommitSplit``): all N rounds must pass; the
+healthy commits' p99 is printed against ``TIMED_P99_MS``.
+``--fleet-crash N`` runs phase 1, then phase 10's durable fleet N
+times with the crash round beside it (``fleet_crash``).
 
 Imports only the port, torch, numpy and the standard library.
 """
@@ -2598,6 +2621,33 @@ def grown_past_floor(floor, keys) -> bool:
             and any(k[i] > floor[n] for k in keys for i, n in enumerate(names)))
 
 
+def plane_doc_diff(a, b, limit=4) -> str:
+    """Where two planes' shards hold different documents (canonical form,
+    as ``canon_doc``): per collection and shard, the count only in each
+    and an example of each, or that the order alone differs; for a failed
+    equality check's message."""
+    from collections import Counter
+
+    out = []
+    for k, (sa, sb) in enumerate(zip(a.stores, b.stores)):
+        for c in PLANE_COLLECTIONS:
+            la, lb = ([json.dumps(canon_doc(d), sort_keys=True, default=str)
+                       for d in s_.collection(c).find()] for s_ in (sa, sb))
+            if la == lb:
+                continue
+            only_a = list((Counter(la) - Counter(lb)).elements())
+            only_b = list((Counter(lb) - Counter(la)).elements())
+            if not only_a and not only_b:
+                out.append(f"{c}[{k}]: the same documents in another order")
+            else:
+                out.append(f"{c}[{k}]: {len(only_a)} only in the first "
+                           f"({only_a[0][:400] if only_a else ''}), {len(only_b)} only in "
+                           f"the second ({only_b[0][:400] if only_b else ''})")
+            if len(out) >= limit:
+                return "; ".join(out)
+    return "; ".join(out) or "none differs"
+
+
 def check_plane_a_mode(r, label, mode, drift, modes=PLANE_A_MODES) -> None:
     """Hold a stacking card plane's mode in round ``r`` to ``modes``
     (phase 9's plane (a): ``PLANE_A_MODES``; phase 10's durable fleet:
@@ -2970,10 +3020,10 @@ def timed_method(store, name) -> list:
     real = getattr(store, name)
     ms = []
 
-    def timed(*args):
+    def timed(*args, **kwargs):
         t0 = time.perf_counter()
         try:
-            return real(*args)
+            return real(*args, **kwargs)
         finally:
             ms.append((time.perf_counter() - t0) * 1e3)
 
@@ -3435,8 +3485,14 @@ def fleet_phase(torch, np, problem, keep, card, data_dir, launches_by) -> None:
         names = list(keyed)
         for group in ([n for n in names if n not in fresh], [n for n in names if n in fresh]):
             for name in group[1:]:
-                check(full[name] == full[group[0]], f"fleet round {label}: the documents "
-                      f"of {name} differ from {group[0]}'s")
+                if full[name] != full[group[0]]:
+                    raise AssertionError(
+                        f"fleet round {label}: the documents of {name} differ from "
+                        f"{group[0]}'s: " + plane_doc_diff(keyed[name], keyed[group[0]])
+                        + "; shards (overload, shed, degraded): " + json.dumps(
+                            {n: {k: [x.overload, list(x.shed), x.degraded]
+                                 for k, x in sorted(res[n].results.items())}
+                             for n in (name, group[0])}, default=str))
         if fresh:
             bare = {n: plane_docs(keyed[n], stamps=False) for n in names}
             for name in names[1:]:
@@ -3462,7 +3518,11 @@ def fleet_phase(torch, np, problem, keep, card, data_dir, launches_by) -> None:
                                       f"persisters are fresh; {QUEUE_STAMPS} aside "
                                       f"against the rest)" if fresh else "")
             + "; launches per plane "
-            + json.dumps({n: launches[n]["fused_distro_stats"] for n in names}))
+            + json.dumps({n: launches[n]["fused_distro_stats"] for n in names})
+            + "; shard ticks (ms, overload, shed) " + json.dumps(
+                {n: [[round(x.total_ms, 1), x.overload, list(x.shed)]
+                     for _, x in sorted(res[n].results.items())] for n in names},
+                default=str))
         return res
 
     try:
@@ -4293,18 +4353,25 @@ def join_fleet_child(child) -> dict:
 
 #: the scenario process (``start_scenario_child``): the port's scenario
 #: engine on the card beside phases 9 (after its profiled round), 6, 7,
-#: 10, 12 and 13, its data directories and its trace under this root
-SCENARIO_ROOT = os.path.join(HERE, "_smoke_scenarios")
+#: 10, 12 and 13, its data directories and its trace under this root, in
+#: the system's temp dir as the engine's own default (on the card's
+#: machine a healthy commit of the timed case took 2.3 ms at the median
+#: under the checkout against 1.7 there: ``--timed``), one root for each
+#: checkout
+SCENARIO_ROOT = os.path.join(
+    __import__("tempfile").gettempdir(),
+    "evg-smoke-scenarios-" + __import__("hashlib").sha1(HERE.encode()).hexdigest()[:12])
 SCENARIO_WAIT_S = 600.0
 #: the fuzz campaign's seeds, from FUZZCARD_GREEN.json's start seed (16
 #: until step 5 came beside phases 10-13 and the phases ended past 400 s;
 #: the CPU tests hold 48 seeds' weathers and 16 cases to JAX's)
 FUZZ_SEEDS = 8
 #: the second card run of the specs SCORECARD_GREEN.json pins (the
-#: others always run twice: their determinism has no other witness)
-PINNED_TWICE = True
-#: ``config3-failover``'s ticks
-FAILOVER_TICKS = 5
+#: others always run twice: their determinism has no other witness; cut
+#: when the crash round came)
+PINNED_TWICE = False
+#: ``config3-failover``'s ticks (5 until the crash round came)
+FAILOVER_TICKS = 4
 #: the matrix case whose ladder rides the real commit latency: held by
 #: its verdicts, not its fingerprint, and run by the scenario process
 #: last, once ``main`` has ended phase 13 and waits (``timed_round``):
@@ -4427,6 +4494,8 @@ def scenario_run(spec, card, solves, totals, keep_data_dir=False):
 
 
 def failed(entry) -> dict:
+    if entry is None:
+        return {}
     return {f"{sec}.{k}": v["detail"] for sec in ("invariants", "checks", "slos")
             for k, v in entry.get(sec, {}).items() if not v["ok"]}
 
@@ -4490,6 +4559,287 @@ def timed_round(card, solves, totals) -> float:
             f"equal, in {time.perf_counter() - t0:.2f} s; dwell ticks "
             + ", ".join(json.dumps(e["dwell_ticks"]) for e in runs))
     return time.perf_counter() - t0
+
+
+def mount_of(path) -> str:
+    """The filesystem type and mount point that hold ``path``, from
+    ``/proc/mounts`` (the longest mount point that prefixes it)."""
+    real, best = os.path.realpath(path), ("?", "")
+    with open("/proc/mounts") as fh:
+        for line in fh:
+            parts = line.split()
+            if len(parts) < 3:
+                continue
+            point = parts[1].replace("\\040", " ")
+            if ((real == point or real.startswith(point.rstrip("/") + "/"))
+                    and len(point) >= len(best[1])):
+                best = (parts[2], point)
+    return f"{best[0]} at {best[1]}"
+
+
+class CommitSplit:
+    """``--timed``'s split of each WAL group commit the ladder samples
+    (``store_latency_ms``), by wrappers on the durable store's commit
+    path (this tree's, or an older one's, whose flusher re-reads the
+    lease file for every frame): the commit boundary (``wal.fence``, the
+    detach and the lease-file check: ``_queue_group``, or
+    ``end_tick_async``), the wait until the flusher starts the write,
+    the write (``commit_group_inline``), of it the journal's write and
+    flush, the wait until ``_drain_flusher`` returns, and what the sample holds
+    beyond ``end_tick`` (the ``wal_commit`` span); with the lease and
+    floor files' reads (and of them the files' open, read and close,
+    ``_read_bytes``, where the tree has it), the Python threads alive at
+    the commit and the collector's ms inside it."""
+
+    def __init__(self):
+        import gc
+
+        from evergreen_tpu_torch.storage import durable
+        from evergreen_tpu_torch.storage.lease import FileLease
+        from evergreen_tpu_torch.utils import overload
+
+        self.ticks, self.cur, self._gc0 = [], None, None
+        self.restore = []
+        cls = durable.DurableStore
+
+        def wrap(owner, name, after):
+            real = getattr(owner, name)
+
+            def wrapped(*a, **kw):
+                rec = self.cur
+                t0 = time.perf_counter()
+                try:
+                    return real(*a, **kw)
+                finally:
+                    if rec is not None:
+                        after(rec, t0, time.perf_counter())
+
+            setattr(owner, name, wrapped)
+            self.restore.append((owner, name, real))
+
+        real_end_tick = cls.end_tick
+
+        def end_tick(store):
+            rec = {"t0": time.perf_counter(), "lease_ms": 0.0, "gc_ms": 0.0,
+                   "data_dir": store.data_dir,
+                   "threads": sorted(t.name for t in threading.enumerate())}
+            self.cur = rec
+            try:
+                return real_end_tick(store)
+            finally:
+                rec["t_end"] = time.perf_counter()
+                self.cur = None
+                self.ticks.append(rec)
+
+        cls.end_tick = end_tick
+        self.restore.append((cls, "end_tick", real_end_tick))
+
+        def stamp(key):
+            def after(rec, t0, t1):
+                rec[key] = (t0, t1)
+            return after
+
+        def lease_after(rec, t0, t1):
+            rec["lease_ms"] += (t1 - t0) * 1e3
+
+        wrap(cls, "_queue_group" if hasattr(cls, "_queue_group") else "end_tick_async",
+             stamp("boundary"))
+        wrap(cls, "commit_group_inline", stamp("writer"))
+        wrap(cls, "_drain_flusher", stamp("drain"))
+        wrap(durable._Journal, "commit_group", stamp("write"))
+        wrap(FileLease, "peek", lease_after)
+        wrap(FileLease, "_epoch_floor", lease_after)
+
+        def file_after(rec, t0, t1):
+            rec["file_ms"] = rec.get("file_ms", 0.0) + (t1 - t0) * 1e3
+
+        from evergreen_tpu_torch.storage import lease as lease_mod
+
+        if hasattr(lease_mod, "_read_bytes"):
+            wrap(lease_mod, "_read_bytes", file_after)
+        real_observe = overload.LoadMonitor.observe
+
+        def observe(monitor, name, value, ewma=0.0):
+            if name == "store_latency_ms" and self.ticks and "sample_ms" not in self.ticks[-1]:
+                self.ticks[-1]["sample_ms"] = value
+            return real_observe(monitor, name, value, ewma)
+
+        overload.LoadMonitor.observe = observe
+        self.restore.append((overload.LoadMonitor, "observe", real_observe))
+
+        def on_gc(phase, info):
+            rec = self.cur
+            if rec is None:
+                return
+            if phase == "start":
+                self._gc0 = time.perf_counter()
+            elif self._gc0 is not None:
+                rec["gc_ms"] += (time.perf_counter() - self._gc0) * 1e3
+                self._gc0 = None
+
+        gc.callbacks.append(on_gc)
+        self._on_gc = on_gc
+
+    def close(self) -> None:
+        import gc
+
+        gc.callbacks.remove(self._on_gc)
+        for owner, name, real in reversed(self.restore):
+            setattr(owner, name, real)
+
+    def take(self) -> list:
+        """The split of each commit the ladder sampled since the last
+        ``take`` (ms), in tick order."""
+        out = []
+        for rec in self.ticks:
+            if "sample_ms" not in rec or "boundary" not in rec:
+                continue
+            a0, a1 = rec["boundary"]
+            c0, c1 = rec.get("writer", (a1, a1))
+            w0, w1 = rec.get("write", (c0, c0))
+            d0, d1 = rec.get("drain", (c1, c1))
+            out.append({
+                "sample": rec["sample_ms"],
+                "boundary": (a1 - a0) * 1e3,
+                "to_writer": (c0 - a1) * 1e3,
+                "writer": (c1 - c0) * 1e3,
+                "write_flush": (w1 - w0) * 1e3,
+                "to_drained": (d1 - c1) * 1e3,
+                "lease_read": rec["lease_ms"],
+                "file_read": rec.get("file_ms", 0.0),
+                "beyond_end_tick": rec["sample_ms"] - (rec["t_end"] - rec["t0"]) * 1e3,
+                "gc": rec["gc_ms"],
+                "threads": rec["threads"],
+                "data_dir": rec["data_dir"],
+            })
+        del self.ticks[:]
+        return out
+
+
+TIMED_PARTS = ("sample", "boundary", "to_writer", "writer", "write_flush", "to_drained",
+               "lease_read", "file_read", "beyond_end_tick", "gc")
+#: the healthy ticks of the timed case (its fault covers ticks 0-3) and
+#: the bound ``--timed`` reads their commit's p99 against: half the 3 ms rung
+TIMED_HEALTHY_FROM = 4
+TIMED_P99_MS = 1.5
+
+
+def pct(xs, q) -> float:
+    """The ``q`` quantile of ``xs`` (nearest rank)."""
+    import math
+
+    xs = sorted(xs)
+    return xs[max(0, math.ceil(q * len(xs)) - 1)]
+
+
+FS_PROBE_READS = 400
+
+
+def fs_probe(root) -> None:
+    """The cost of one fence check's file reads where the timed case
+    keeps its data: a lease taken in a fresh directory under ``root``,
+    then ``FS_PROBE_READS`` reads each of its lease file and its floor
+    file as the store reads them (``_read_bytes``: by path), of the lease
+    file relative to an open descriptor of its directory, and a
+    ``stat`` of it; p50, p99 and max ms of each."""
+    import shutil
+    import tempfile
+
+    from evergreen_tpu_torch.storage import lease as lease_mod
+
+    d = tempfile.mkdtemp(prefix="fs-probe-", dir=root)
+    try:
+        lease = lease_mod.FileLease(os.path.join(d, "writer.lease"))
+        check(lease.try_acquire(), "fs probe: no lease")
+        dfd = os.open(d, os.O_RDONLY)
+
+        def relative():
+            fd = os.open("writer.lease", os.O_RDONLY, dir_fd=dfd)
+            try:
+                return os.read(fd, 65536)
+            finally:
+                os.close(fd)
+
+        ways = {"lease by path": lambda: lease_mod._read_bytes(lease.path),
+                "floor by path": lambda: lease_mod._read_bytes(lease._floor_path()),
+                "lease by dir fd": relative,
+                "stat of the lease": lambda: os.stat(lease.path)}
+        got = {}
+        for name, fn in ways.items():
+            ms = []
+            for _ in range(FS_PROBE_READS):
+                t0 = time.perf_counter()
+                fn()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            got[name] = ms
+        os.close(dfd)
+        lease.release()
+        log(f"fs probe under {root} ({mount_of(d)}), {FS_PROBE_READS} each, ms p50/p99/max: "
+            + "; ".join(f"{k} {pct(v, .5):.3f}/{pct(v, .99):.3f}/{max(v):.3f}"
+                        for k, v in got.items()))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def timed_rounds(n, root=None, card="cuda") -> None:
+    """``chip_smoke.py --timed N [ROOT]``: ``timed_round`` N times (each
+    twice on the card and once on the CPU, all three ok, no retry), its
+    data directories under ``ROOT`` (default: the system's temp dir, as
+    the engine's own default); for every tick, the commit's split
+    (``CommitSplit``); per run the healthy ticks' quantiles; at the end
+    the healthy commits' p99 over every run against ``TIMED_P99_MS``,
+    printed as met or not (on a remote filesystem the fence check's two
+    file reads can exceed it)."""
+    import shutil
+    import tempfile
+
+    root = root or tempfile.mkdtemp(prefix="evg-chip-timed-")
+    os.makedirs(root, exist_ok=True)
+    tempfile.tempdir = root
+    solves, totals, split = SolveLog(), {}, CommitSplit()
+    healthy = {"card": [], "cpu": []}
+    passed = 0
+    try:
+        log(f"--timed: data under {root} ({mount_of(root)}); switch interval "
+            f"{sys.getswitchinterval() * 1e3:.1f} ms; Python threads "
+            + json.dumps(sorted(t.name for t in threading.enumerate())))
+        fs_probe(root)
+        for i in range(n):
+            runs = []
+            for dev in (card, card, "cpu"):
+                entry, _ = scenario_run(dict(scenario_specs())[TIMED_CASES[0]](), dev,
+                                        solves, totals)
+                ticks = split.take()
+                runs.append((dev, entry, ticks))
+            for j, (dev, entry, ticks) in enumerate(runs):
+                for k, t in enumerate(ticks):
+                    log(f"timed {i}.{j} {dev} tick {k}: " + " ".join(
+                        f"{p}={t[p]:.3f}" for p in TIMED_PARTS)
+                        + f" threads={','.join(t['threads'])}")
+                good = ticks[TIMED_HEALTHY_FROM:]
+                healthy["cpu" if j == 2 else "card"] += [t["sample"] for t in good]
+                log(f"timed {i}.{j} on {dev}: ok={entry['ok']} dwell {entry['dwell_ticks']}; "
+                    f"healthy ticks' ms p50/p99/max " + ", ".join(
+                        f"{p} {pct([t[p] for t in good], .5):.3f}/"
+                        f"{pct([t[p] for t in good], .99):.3f}/{max(t[p] for t in good):.3f}"
+                        for p in TIMED_PARTS) + f"; data dir on {mount_of(ticks[0]['data_dir'])}")
+            ok = all(e["ok"] for _, e, _ in runs) and all(
+                e[f] == runs[2][1][f] for _, e, _ in runs[:2]
+                for f in ("checks", "invariants", "slos"))
+            passed += ok
+            log(f"timed round {i}: {'ok' if ok else 'FAILED: ' + json.dumps([failed(e) for _, e, _ in runs])}")
+    finally:
+        split.close()
+        tempfile.tempdir = None
+        shutil.rmtree(root, ignore_errors=True)
+    allh = healthy["card"] + healthy["cpu"]
+    p99 = pct(allh, .99)
+    log(f"--timed {n}: {passed} of {n} rounds ok; healthy ticks ({TIMED_HEALTHY_FROM}-27) "
+        f"commit p50 {pct(allh, .5):.3f} ms, p99 {p99:.3f} ms, max {max(allh):.3f} ms over "
+        f"{len(allh)} commits (card runs p99 {pct(healthy['card'], .99):.3f}, CPU runs p99 "
+        f"{pct(healthy['cpu'], .99):.3f}); the p99 bound {TIMED_P99_MS} ms "
+        f"{'met' if p99 < TIMED_P99_MS else 'NOT met'}; card launches {nonzero(totals)}")
+    check(passed == n, f"--timed: {passed} of {n} rounds ok")
 
 
 def fuzz_round(card, solves, totals, start_seed) -> dict:
@@ -4596,11 +4946,12 @@ def trace_round(card, solves, totals, root) -> tuple:
 #: the proc sabotage self-test against its CPU twin. A worker on the card
 #: boots in 14-34 s (its backend probe, torch, CUDA), so each replay
 #: costs 24-68 s there, and its processes load the host beside phases
-#: 10-13: a worker kill, a leader's death at the stacked solve's return
-#: and ``leader-death`` (both at once) fit, ending step 5 near phase 13's
-#: end; ``proc-net-oneway-partition`` (44 s) and the self-test (79 s) run
-#: on the CPU (tests/test_torch_procs*.py)
-PROC_CARD_WEATHERS = ("proc-fleet-sigkill", "proc-leader-kill-return", "leader-death")
+#: 10-13: a worker kill and a leader's death at the stacked solve's
+#: return fit beside the crash process (``leader-death``, the leader and
+#: then a worker at once, 27-50 s, was cut when it came);
+#: ``proc-net-oneway-partition`` (44 s) and the self-test (79 s) run on
+#: the CPU (tests/test_torch_procs*.py)
+PROC_CARD_WEATHERS = ("proc-fleet-sigkill", "proc-leader-kill-return")
 PROC_CRASH_POINT = ("wal.commit", 1)
 PROC_SELFTEST = False
 
@@ -4650,16 +5001,6 @@ class ProcLog:
         del self.runs[:], self.stacked[:]
 
 
-def solve_launches(solves, capacity_iters) -> dict:
-    """``expected_launches`` of ``solves`` solves whose capacity trip
-    counts sum to ``capacity_iters``."""
-    return {"fused_distro_stats": solves,
-            "segment_sum": 5 * solves + capacity_iters,
-            "segment_sum[task]": solves,
-            "segment_sum[host]": solves,
-            "segment_sum[pool]": 3 * solves + capacity_iters}
-
-
 def worker_lives(run) -> dict:
     """Each shard worker life of a proc replay, keyed (shard, epoch): its
     last round reply's kernel counters and card solves, and the local
@@ -4685,6 +5026,7 @@ def proc_card_launches(plog, card, label) -> dict:
     rounds' local solves. Returns their sum (on the CPU, nothing)."""
     from evergreen_tpu_torch.ops.distro_stats import fused_distro_stats
     from evergreen_tpu_torch.ops.segment import segment_sum
+    from evergreen_tpu_torch.scenarios.crash_matrix import expected_launches as solve_launches
 
     leader = read_launches(fused_distro_stats, segment_sum)
     out = {}
@@ -4857,6 +5199,265 @@ def procs_round(card, cpu=None) -> dict:
         f"workers in parallel, a successor's adopts them): {starts}; card launches "
         f"{nonzero(totals)}")
     return {"launches": totals, "walls": walls, "starts": starts}
+
+
+#: the crash round (``start_crash_child``): the crash matrix's kill
+#: points on the card, each against a CPU child's uninterrupted run; the
+#: other ten single-store points, the other two handoff points and the
+#: supervisor and solver points run on the CPU
+#: (``tests/test_torch_crash_recovery.py``, ``python -m
+#: evergreen_tpu_torch.scenarios.crash_matrix --device cpu``)
+CRASH_CARD_POINTS = (("scheduler.solve", 2), ("dispatch.assign", 0))
+CRASH_SHARDED_POINT = ("handoff.record", 0)
+CRASH_ROOT = os.path.join(
+    __import__("tempfile").gettempdir(),
+    "evg-smoke-crash-" + __import__("hashlib").sha1(HERE.encode()).hexdigest()[:12])
+CRASH_WAIT_S = 600.0
+
+
+def crash_cpu_references() -> dict:
+    """The crash round's CPU side, which needs no card: a CPU child's
+    uninterrupted run of the single-store workload and of the 2-shard
+    one (``reference_state``, ``sharded_reference_state``), with walls."""
+    from evergreen_tpu_torch.scenarios import crash_matrix as cm
+
+    out, walls = {}, {}
+    t0 = time.perf_counter()
+    out["single"] = cm.reference_state(device="cpu")
+    walls["CPU reference"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["sharded"] = cm.sharded_reference_state(device="cpu")
+    walls["CPU sharded reference"] = time.perf_counter() - t0
+    out["walls"] = walls
+    return out
+
+
+def crash_lives(label, lives, card, totals) -> list:
+    """Hold each child life of a crash case: its launch lines exact
+    (``life_launches``), no lock-order inversion, and on the card a card
+    solve for every tick it planned on the device, at least one if it
+    reported a tick; its launches added to ``totals``. Returns each
+    life's (ticks, card solves, boot split, wall) for the log."""
+    shown = []
+    for i, life in enumerate(lives):
+        check(not life["problems"], f"{label}: life {i}: {life['problems']}")
+        check(life["inversions"] == 0, f"{label}: life {i}: {life['inversions']} "
+              f"lock-order inversion lines")
+        solves = life["card_solves"]["solves"]
+        if card == "cuda":
+            check(solves == life["device_ticks"] and (solves or not life["ticks"]),
+                  f"{label}: life {i}: {solves} card solves for {life['device_ticks']} "
+                  f"device ticks of {len(life['ticks'])} reported")
+            add_launches(totals, {k: v for k, v in life["launches"].items() if v})
+        shown.append({"ticks": len(life["ticks"]), "card_solves": solves,
+                      "boot_ms": {k: round(v, 1) for k, v in (life["boot"] or {}).items()},
+                      "wall_s": life["wall_s"]})
+    return shown
+
+
+def crash_round(card, cpu=None) -> dict:
+    """The crash matrix on ``card`` (``scenarios/crash_matrix.py``, every
+    child under the lock-order witness): the kill points of
+    ``CRASH_CARD_POINTS`` (each crashed at its seam, restarted, converged
+    to the CPU child's uninterrupted state, epochs [1, 2], invariants
+    held), the two-process failover (the resumed holder fenced: exit 75
+    or 70, the standby at a higher epoch, no superseded-epoch frame past
+    the fence point) and ``CRASH_SHARDED_POINT`` on a 2-shard plane
+    (converged to the CPU's 2-shard run, per-shard epochs [1, 2]); each
+    child life's launches exact (``crash_lives``). ``cpu`` is
+    ``crash_cpu_references()``'s result (computed here when None).
+    Returns the card launches (the kernels line's ``crash`` column) and
+    the walls."""
+    from evergreen_tpu_torch.scenarios import crash_matrix as cm
+
+    cpu = crash_cpu_references() if cpu is None else cpu
+    walls, totals = {}, {}
+    for seam, idx in CRASH_CARD_POINTS:
+        label = f"crash {seam}@{idx}"
+        t0 = time.perf_counter()
+        out = cm.run_point(seam, idx, reference=cpu["single"], device=card)
+        walls[label] = time.perf_counter() - t0
+        check(out["ok"] and out["crashed"] and out["parity_ok"] and out["epochs"] == [1, 2],
+              f"{label} on {card}: {out['problems']}, rc {out['rc']}, epochs "
+              f"{out['epochs']}: {out['out'][-3000:]}")
+        lives = crash_lives(label, out["lives"], card, totals)
+        log(f"{label} on {card}: crashed (rc {out['rc']}), epochs {out['epochs']}, converged "
+            f"to the CPU reference, invariants held, in {walls[label]:.1f} s; lives "
+            + json.dumps(lives))
+    label = "crash failover"
+    t0 = time.perf_counter()
+    fo = cm.failover_case(device=card)
+    walls[label] = time.perf_counter() - t0
+    check(fo["ok"] and fo["holder_exit"] in (cm.EXIT_LOST, cm.EXIT_FENCED)
+          and fo["standby_epoch"] > fo["holder_epoch"] and not fo["stale_after_fence"],
+          f"{label} on {card}: {fo['problems']}: {fo['holder_out'][-2000:]} "
+          f"{fo['standby_out'][-2000:]}")
+    lives = crash_lives(label, fo["lives"], card, totals)
+    log(f"{label} on {card}: the resumed holder exited {fo['holder_exit']} (fenced at its "
+        f"commit: {fo['fenced_at_commit']}), epochs holder {fo['holder_epoch']} standby "
+        f"{fo['standby_epoch']}, frame epochs {fo['frame_epochs']}, none superseded past "
+        f"the fence, in {walls[label]:.1f} s; lives " + json.dumps(lives))
+    seam, idx = CRASH_SHARDED_POINT
+    label = f"crash sharded {seam}@{idx}"
+    t0 = time.perf_counter()
+    out = cm.run_sharded_point(seam, idx, reference=cpu["sharded"], device=card)
+    walls[label] = time.perf_counter() - t0
+    check(out["ok"] and out["crashed"] and out["parity_ok"]
+          and all(e == [1, 2] for e in out["epochs"].values()),
+          f"{label} on {card}: {out['problems']}, rc {out['rc']}, epochs "
+          f"{out['epochs']}: {out['out'][-3000:]}")
+    lives = crash_lives(label, out["lives"], card, totals)
+    log(f"{label} on {card}: crashed (rc {out['rc']}), per-shard epochs {out['epochs']}, "
+        f"converged to the CPU's 2-shard run, one owner per distro, in "
+        f"{walls[label]:.1f} s; lives " + json.dumps(lives))
+    log(f"crash round on {card}: {sum(walls.values()):.1f} s; card launches "
+        f"{nonzero(totals)} (exact per life)")
+    return {"launches": totals, "walls": walls}
+
+
+def crash_child(here, out_path, t0_wall, gate, card="cuda") -> None:
+    """The ``spawn`` process of ``start_crash_child``: the CPU references
+    (``crash_cpu_references``), then, once ``gate`` is set (after the
+    fleet process's join),
+    ``crash_round`` on ``card``, its data directories under
+    ``CRASH_ROOT``; writes ``{"ok": ..., the launches and walls, or
+    "error"}`` to ``out_path``."""
+    global _T0, _TAG
+    _T0 = time.perf_counter() - (time.time() - t0_wall)
+    _TAG = "[crash process] "
+    sys.path.insert(0, here)
+    # a terminate (a failure elsewhere) unwinds: the running child is
+    # killed on the way out
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(1))
+    result = {"ok": False}
+    import shutil
+    import tempfile
+
+    shutil.rmtree(CRASH_ROOT, ignore_errors=True)
+    os.makedirs(CRASH_ROOT)
+    tempfile.tempdir = CRASH_ROOT
+    try:
+        t0 = time.perf_counter()
+        cpu = crash_cpu_references()
+        log(f"the crash round's CPU references in {time.perf_counter() - t0:.1f} s: "
+            + json.dumps({k: round(v, 1) for k, v in cpu["walls"].items()}))
+        t1 = time.perf_counter()
+        gate.wait()
+        log(f"waited {time.perf_counter() - t1:.1f} s for the fleet process's end")
+        out = crash_round(card, cpu)
+        result.update(out, ok=True)
+        result["walls"] = {**cpu["walls"], **out["walls"]}
+    except BaseException:
+        import traceback
+
+        result["error"] = traceback.format_exc()
+        raise
+    finally:
+        tempfile.tempdir = None
+        shutil.rmtree(CRASH_ROOT, ignore_errors=True)
+        with open(out_path, "w") as fh:
+            json.dump(result, fh)
+
+
+def start_crash_child(card="cuda") -> dict:
+    """``crash_child`` in a ``spawn`` process, with the event it waits
+    for before it touches the card (``"gate"``, set once the fleet
+    process has ended)."""
+    import multiprocessing
+    import tempfile
+
+    ctx = multiprocessing.get_context("spawn")
+    out_path = os.path.join(tempfile.mkdtemp(prefix="evg-chip-crash-"), "result.json")
+    t0_wall = time.time() - (time.perf_counter() - _T0)
+    gate = ctx.Event()
+    proc = ctx.Process(target=crash_child, args=(HERE, out_path, t0_wall, gate, card))
+    proc.start()
+    return {"proc": proc, "gate": gate, "out": out_path, "t0": time.perf_counter(),
+            "card": card}
+
+
+def join_crash_child(child) -> dict:
+    """Wait for the crash process; its result, or the failure it wrote."""
+    import shutil
+
+    proc = child["proc"]
+    t0 = time.perf_counter()
+    proc.join(CRASH_WAIT_S)
+    waited = time.perf_counter() - t0
+    if proc.is_alive():
+        stop_fleet_child(child)
+    result = {}
+    if os.path.exists(child["out"]):
+        with open(child["out"]) as fh:
+            result = json.load(fh)
+    shutil.rmtree(os.path.dirname(child["out"]), ignore_errors=True)
+    check(proc.exitcode == 0 and result.get("ok"),
+          f"the crash process ended with exit code {proc.exitcode}: "
+          f"{result.get('error', '')[-3000:]}")
+    log(f"the crash process ended {time.perf_counter() - child['t0']:.1f} s after its "
+        f"start; waited {waited:.1f} s for it here; its walls "
+        + json.dumps({k: round(v, 1) for k, v in result["walls"].items()}))
+    return result
+
+
+def fleet_crash(n) -> None:
+    """``chip_smoke.py --fleet-crash N``: phase 10's durable fleet
+    (``fleet_phase``) N times on the card, with the crash process's
+    round beside them, its gate open from the start: a run's conditions
+    when the crash children boot beside the fleet's rounds. A fleet's
+    failure is printed (with the documents that differ and each shard's
+    tick ms, overload, shed and degradation) and the next one runs; each
+    round's line holds its shards' readings."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from evergreen_tpu_torch.utils.benchgen import generate_problem
+
+    problem = generate_problem(*CONFIG3, seed=SEED)
+    keep = {d.id for d in problem[0][:-1]}
+    crash = start_crash_child()
+    crash["gate"].set()
+    ok = 0
+    try:
+        for i in range(n):
+            shutil.rmtree(FLEET_ROOT, ignore_errors=True)
+            os.makedirs(FLEET_ROOT)
+            t0 = time.perf_counter()
+            try:
+                fleet_phase(torch, np, problem, keep, "cuda",
+                            os.path.join(FLEET_ROOT, "durable-fleet"), {"fleet": {}})
+                ok += 1
+                log(f"--fleet-crash {i}: ok in {time.perf_counter() - t0:.1f} s")
+            except AssertionError as exc:
+                log(f"--fleet-crash {i}: FAILED in {time.perf_counter() - t0:.1f} s: {exc}")
+            finally:
+                shutil.rmtree(FLEET_ROOT, ignore_errors=True)
+        join_crash_child(crash)
+    finally:
+        stop_fleet_child(crash)
+    log(f"--fleet-crash {n}: {ok} of {n} fleets ok")
+    check(ok == n, f"--fleet-crash: {ok} of {n} fleets ok")
+
+
+def crash_alone() -> None:
+    """``chip_smoke.py --crash``: the crash round alone on the card, its
+    CPU side first, each wall printed."""
+    import shutil
+    import tempfile
+
+    shutil.rmtree(CRASH_ROOT, ignore_errors=True)
+    os.makedirs(CRASH_ROOT)
+    tempfile.tempdir = CRASH_ROOT
+    try:
+        cpu = crash_cpu_references()
+        out = crash_round("cuda", cpu)
+        log("--crash: walls " + json.dumps(
+            {k: round(v, 1) for k, v in {**cpu["walls"], **out["walls"]}.items()}))
+    finally:
+        tempfile.tempdir = None
+        shutil.rmtree(CRASH_ROOT, ignore_errors=True)
 
 
 def scenario_phases(torch, np, card="cuda", root=SCENARIO_ROOT, trace_ready=None,
@@ -8894,12 +9495,20 @@ def main() -> int:
     profile_dir = None
     sweep_mode = sys.argv[1:] == ["--sweep"]
     procs_mode = sys.argv[1:] == ["--procs"]
+    crash_mode = sys.argv[1:] == ["--crash"]
+    timed = fleets = None
     if len(sys.argv) == 3 and sys.argv[1] == "--profile":
         profile_dir = sys.argv[2]
-    elif len(sys.argv) != 1 and not (sweep_mode or procs_mode):
-        print("usage: chip_smoke.py [--profile OUT_DIR | --sweep | --procs]",
-              file=sys.stderr)
+    elif len(sys.argv) in (3, 4) and sys.argv[1] == "--timed" and sys.argv[2].isdigit():
+        timed = (int(sys.argv[2]), sys.argv[3] if len(sys.argv) == 4 else None)
+    elif len(sys.argv) == 3 and sys.argv[1] == "--fleet-crash" and sys.argv[2].isdigit():
+        fleets = int(sys.argv[2])
+    elif len(sys.argv) != 1 and not (sweep_mode or procs_mode or crash_mode):
+        print("usage: chip_smoke.py [--profile OUT_DIR | --sweep | --procs | --crash | "
+              "--timed N [ROOT] | --fleet-crash N]", file=sys.stderr)
         return 2
+    side_mode = (sweep_mode or procs_mode or crash_mode or timed is not None
+                 or fleets is not None)
     if not os.path.isdir(os.path.join(HERE, "evergreen_tpu_torch")):
         print("chip_smoke: evergreen_tpu_torch/ is not beside this script; "
               "run it from a checkout of the repository", file=sys.stderr)
@@ -8919,7 +9528,7 @@ def main() -> int:
     check(torch.cuda.device_count() == 1, "expected exactly one visible card")
     # phase 4's worker processes start now: their imports overlap the
     # backend probe and the build
-    workers = None if sweep_mode or procs_mode else start_stacked_workers()
+    workers = None if side_mode else start_stacked_workers()
 
     # the backend probe: a fresh interpreter must see the card
     from evergreen_tpu_torch.utils.torchenv import ensure_usable_backend
@@ -9008,6 +9617,18 @@ def main() -> int:
     sm_mhz = float(clock.split()[0])
     if procs_mode:
         procs_timing()
+        print(smi)
+        return 0
+    if timed is not None:
+        timed_rounds(*timed)
+        print(smi)
+        return 0
+    if crash_mode:
+        crash_alone()
+        print(smi)
+        return 0
+    if fleets is not None:
+        fleet_crash(fleets)
         print(smi)
         return 0
     if workers is not None:
@@ -9258,6 +9879,7 @@ def main() -> int:
     # until then, so that the main process has work beside it)
     child = start_fleet_child()
     scen = start_scenario_child()
+    crash = start_crash_child()
 
     def open_gates():
         child["gate"].set()
@@ -9294,6 +9916,10 @@ def main() -> int:
         phase_done("phase 10 (the durable tick)")
         fleet = join_fleet_child(child)
         phase_done("the wait for the fleet process")
+        # the crash round's children boot on the host beside phases 12
+        # and 13, not beside the fleet process's rounds and their solve
+        # deadlines
+        crash["gate"].set()
         walls.update(fleet["walls"])
         durable["fleet"] = fleet["durable fleet"]
         proc = fleet["fleet"]
@@ -9302,16 +9928,20 @@ def main() -> int:
         # points (with the scenario process's trace replayed beside 13)
         cron, ingest, rest, cold, smoke, replayed = entry_phases(
             torch, np, problems["seed0"], smi, phase_done, scenarios=scen)
+        crashed = join_crash_child(crash)
+        phase_done("the wait for the crash process")
         scen["quiet"].set()
         scenarios = join_scenario_child(scen)
         phase_done("the wait for the scenario process")
     finally:
         stop_fleet_child(child)
         stop_fleet_child(scen)
+        stop_fleet_child(crash)
         import shutil
 
         shutil.rmtree(SCENARIO_ROOT, ignore_errors=True)
     walls.update({f"scenario process: {k}": v for k, v in scenarios["walls"].items()})
+    walls.update({f"crash process: {k}": v for k, v in crashed["walls"].items()})
     scen_launches = dict(scenarios["launches"])
     add_launches(scen_launches, replayed)
     procs_launches = scenarios["procs"]
@@ -9363,6 +9993,7 @@ def main() -> int:
         r["launches_by_path"]["smoke"] = 0 if slab_only else smoke.get(r["name"], 0)
         r["launches_by_path"]["scenarios"] = scen_launches.get(r["name"], 0)
         r["launches_by_path"]["procs"] = procs_launches.get(r["name"], 0)
+        r["launches_by_path"]["crash"] = crashed["launches"].get(r["name"], 0)
         r["launches"] = sum(r["launches_by_path"].values())
     slab = service["slab_row"]
     slab["floor_ms"] = floor_ms
@@ -9379,7 +10010,8 @@ def main() -> int:
         "cold": 0,
         "smoke": smoke.get("fused_distro_stats", 0),
         "scenarios": 0,
-        "procs": 0}
+        "procs": 0,
+        "crash": 0}
     slab["launches"] = sum(slab["launches_by_path"].values())
     rows.append(slab)
     # the byte and chain bounds behind bound_ms are in the log lines above

@@ -36,6 +36,7 @@ from ..ops.solve import (
     with_output_dims,
 )
 from ..scheduler.snapshot import layout_for_dims
+from ..utils import lockcheck as _lockcheck
 
 MAGIC = b"EVGS"
 VERSION = 2
@@ -138,7 +139,7 @@ class SidecarServer(socketserver.ThreadingTCPServer):
 
     def __init__(self, address: Tuple[str, int], device: torch.device) -> None:
         self.device = device
-        self.solve_lock = threading.Lock()
+        self.solve_lock = _lockcheck.make_lock("sidecar.solve")
         super().__init__(address, _Handler)
 
 

@@ -16,7 +16,6 @@ plus the poisoned-host accounting of ``note_host_task_outcome``) and
 """
 from __future__ import annotations
 
-import threading
 import time as _time
 import weakref
 from typing import Dict, List, Optional, Tuple
@@ -33,6 +32,7 @@ from ..globals import (
     VersionStatus,
 )
 from ..storage.store import Store
+from ..utils import lockcheck as _lockcheck
 from . import build as build_mod
 from . import event as event_mod
 from . import host as host_mod
@@ -101,9 +101,9 @@ class _TaskIndex:
         self._pending: set = set()
         #: the written ids' lock: the listener runs under the collection's
         #: lock and takes only this one
-        self._pending_lock = threading.Lock()
+        self._pending_lock = _lockcheck.make_lock("lifecycle.index.pending")
         #: one lookup at a time (taken before the collection's lock)
-        self._lock = threading.Lock()
+        self._lock = _lockcheck.make_lock("lifecycle.index")
         coll.add_listener(self._written)
         self._note(coll.find())
 
@@ -156,7 +156,7 @@ _INDEX_KEYS = {"dependents": _parents, "group": _group,
 #: per-store indexes, keyed weakly: they go with the store
 _indexes: "weakref.WeakKeyDictionary[Store, Dict[str, _TaskIndex]]" = (
     weakref.WeakKeyDictionary())
-_indexes_lock = threading.Lock()
+_indexes_lock = _lockcheck.make_lock("lifecycle.indexes")
 
 
 def _indexed_find(store: Store, index: str, key, pred) -> List[dict]:

@@ -21,9 +21,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
 from typing import Dict, Iterable, List, Mapping, Sequence, Tuple
+
+from ..utils import lockcheck as _lockcheck
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -35,7 +36,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_lock = _lockcheck.make_lock("ops.build")
 _libs: Dict[str, ctypes.CDLL] = {}
 
 

@@ -12,12 +12,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import Dict
 
 import torch
 
 from . import _build
+from ..utils import lockcheck as _lockcheck
 
 #: stat i lives in column i of the [D, 7] result
 N_STATS = 7
@@ -162,4 +162,4 @@ def launch(
 #: kernel launches since the count was last set to 0; each increment holds
 #: ``_launches_lock``, so launches from several threads all count
 fused_distro_stats.launches = 0
-_launches_lock = threading.Lock()
+_launches_lock = _lockcheck.make_lock("ops.distro_stats.launches")

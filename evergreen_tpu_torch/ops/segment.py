@@ -13,12 +13,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
+from ..utils import lockcheck as _lockcheck
 
 #: the most columns one launch sums over a plan
 MAX_COLUMNS = 4
@@ -150,4 +150,4 @@ def launch(x: torch.Tensor, plan: SegmentPlan, fn=None) -> torch.Tensor:
 #: threads all count
 segment_sum.launches = 0
 segment_sum.launches_by_plan: Dict[str, int] = {}
-_launches_lock = threading.Lock()
+_launches_lock = _lockcheck.make_lock("ops.segment.launches")

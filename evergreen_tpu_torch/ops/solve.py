@@ -29,6 +29,7 @@ import torch
 
 from ..device import resolve_device
 from ..globals import MAX_DURATION_PER_DISTRO_HOST_S
+from ..utils import lockcheck as _lockcheck
 from .capacity import (
     C_AFF_ANNEAL,
     C_AFF_T0,
@@ -711,6 +712,8 @@ def split_outputs(buf_np: np.ndarray, shape_key) -> Dict[str, np.ndarray]:
 #: reports them beside its kernel counters, so that a harness holds the
 #: launches of a process it cannot see into to the solves that made them
 CARD_SOLVES = {"solves": 0, "capacity_iters": 0}
+#: shard threads solve at once (the sharded plane's local rounds)
+_card_solves_lock = _lockcheck.make_lock("ops.solve.card_solves")
 
 
 def run_solve_packed(snapshot, device=None) -> Dict[str, np.ndarray]:
@@ -721,7 +724,9 @@ def run_solve_packed(snapshot, device=None) -> Dict[str, np.ndarray]:
     dev = resolve_device(device)
     buf = dispatch_solve_packed(snapshot, dev)
     if dev.type == "cuda":
-        CARD_SOLVES["solves"] += 1
-        CARD_SOLVES["capacity_iters"] += capacity_iters(snapshot)
+        iters = capacity_iters(snapshot)
+        with _card_solves_lock:
+            CARD_SOLVES["solves"] += 1
+            CARD_SOLVES["capacity_iters"] += iters
         torch.cuda.synchronize(dev)
     return fetch_solve_packed(buf, snapshot)

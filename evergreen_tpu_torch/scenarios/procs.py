@@ -1461,6 +1461,18 @@ def run_crash_point(
         return sup
 
     run._build_supervisor = build_with_crash
+    if seam == "lease.renew":
+        # the worker's renewer beats every ttl/3; a fleet whose rounds
+        # take milliseconds would end before its later beats, so each
+        # round waits one beat and the beat lands mid-run (the JAX
+        # package's worker reaches them because its first tick compiles)
+        real_wait = run._wait_fleet_healthy
+
+        def paced(*a, **kw):
+            real_wait(*a, **kw)
+            _time.sleep(LEASE_TTL_S / 3.0)
+
+        run._wait_fleet_healthy = paced
     run.reference_state = reference
     entry = run.execute()
     problems = [

@@ -369,9 +369,10 @@ class DurableStore(Store):
         self._corrupt_wal_path: Optional[str] = None
         self._journal = _Journal(os.path.join(data_dir, self._wal_name), sync=sync)
         #: the group-commit flusher (started on the first async commit),
-        #: its queue of ("frame", records) / ("op", line) and deferred errors
+        #: its queue of ("frame" | "checked", records) / ("op", line) and
+        #: deferred errors
         self._flush_lock = _lockcheck.make_lock("durable.flush")
-        self._flush_cv = threading.Condition(self._flush_lock)
+        self._flush_cv = _lockcheck.make_condition("durable.flush", lock=self._flush_lock)
         self._flush_queue: list = []
         self._flush_errors: list = []
         self._flush_busy = False
@@ -490,14 +491,20 @@ class DurableStore(Store):
 
     def end_tick(self) -> None:
         """Commit the tick's group synchronously: one framed append, one
-        flush. Raises on a WAL write error."""
-        self.end_tick_async()
+        flush. Raises on a WAL write error.
+
+        A frame queued to an idle flusher with nothing ahead of it is
+        written without a second read of the lease file: the commit
+        boundary's check has just read it (a departure from the JAX
+        package, whose flusher re-reads it for every frame)."""
+        self._queue_group(sync=True)
         self.sync_persist()
 
-    def commit_group_inline(self, records: list) -> None:
-        """Write one group frame now (the flusher's and ``end_tick``'s
-        write), re-checking the fence at write time."""
-        self.assert_not_fenced(read_lease_file=self.epoch > 0)
+    def commit_group_inline(self, records: list, recheck: bool = True) -> None:
+        """Write one group frame now (the flusher's write), re-checking
+        the fence at write time: the fenced flag and the renewer's
+        ``lost``, and with ``recheck`` the lease file."""
+        self.assert_not_fenced(read_lease_file=recheck and self.epoch > 0)
         try:
             self._journal.commit_group(records, epoch=self.epoch)
         except OSError as exc:
@@ -548,6 +555,11 @@ class DurableStore(Store):
         superseded epoch the detached group is dropped and
         ``EpochFencedError`` raised (the ``wal.fence`` seam fires just
         before, so a plan can land a steal mid-commit)."""
+        self._queue_group(sync=False)
+
+    def _queue_group(self, sync: bool) -> None:
+        """The commit boundary of ``end_tick_async`` and, with ``sync``,
+        of ``end_tick``."""
         from ..utils import faults
 
         faults.fire("wal.fence")
@@ -563,11 +575,16 @@ class DurableStore(Store):
                     self._flusher = threading.Thread(
                         target=self._flush_loop, daemon=True, name="wal-group-flusher")
                     self._flusher.start()
-                # the frame carries the committing tick's trace context
-                # so the flusher's write span parents into the SAME tick
-                # trace instead of rooting fresh on its own thread
+                # a sync frame with nothing ahead of it is written as soon
+                # as the flusher wakes: it is "checked", and the flusher
+                # does not read the lease file for it again. The frame
+                # carries the committing tick's trace context so the
+                # flusher's write span parents into the SAME tick trace
+                # instead of rooting fresh on its own thread
+                idle = not self._flush_queue and not self._flush_busy
                 self._flush_queue.append(
-                    ("frame", records, _tracing.capture_context()))
+                    ("checked" if sync and idle else "frame", records,
+                     _tracing.capture_context()))
                 self._flush_cv.notify()
 
     def _flush_loop(self) -> None:
@@ -580,7 +597,7 @@ class DurableStore(Store):
                 kind, payload, ctx = self._flush_queue.pop(0)
                 self._flush_busy = True
             try:
-                if kind == "frame":
+                if kind != "op":
                     # ring-only span: the flusher must not journal a span
                     # document while it holds the write path (and the
                     # frame's tick already has a durable trace)
@@ -590,7 +607,7 @@ class DurableStore(Store):
                     ).span(
                         "wal.flush", store_write=False, n_ops=len(payload)
                     ):
-                        self.commit_group_inline(payload)
+                        self.commit_group_inline(payload, recheck=kind == "frame")
                     WAL_FLUSH_MS.observe((_time.perf_counter() - t0) * 1e3)
                 else:
                     # a queued per-op line stays a plain record and fires

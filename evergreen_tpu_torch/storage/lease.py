@@ -30,6 +30,7 @@ import time
 import uuid
 from typing import Callable, Optional
 
+from ..utils import lockcheck as _lockcheck
 from ..utils import metrics as _metrics
 from . import integrity
 
@@ -71,6 +72,27 @@ def supervisor_lease_path(data_dir: str) -> str:
     return os.path.join(data_dir, "supervisor.lease")
 
 
+_READ_CHUNK = 65536
+
+
+def _read_bytes(path: str) -> bytes:
+    """A small file's bytes through one ``open``, its reads and one
+    ``close``: every commit's fence check reads the lease and floor
+    files, and on a remote filesystem each further call a buffered text
+    ``open`` makes (``fstat``, ``ioctl``, ``lseek``) is a round trip."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        chunks = []
+        while True:
+            chunk = os.read(fd, _READ_CHUNK)
+            chunks.append(chunk)
+            # a regular file's short read is its end: no read for the EOF
+            if len(chunk) < _READ_CHUNK:
+                return b"".join(chunks)
+    finally:
+        os.close(fd)
+
+
 class FileLease:
     #: bounded verify-after-rename attempts in the steal path
     _STEAL_ATTEMPTS = 5
@@ -90,14 +112,13 @@ class FileLease:
         self._on_lost: Optional[Callable[[], None]] = None
         self._stood_down = False
         #: serializes renewals against epoch advancement
-        self._epoch_lock = threading.Lock()
+        self._epoch_lock = _lockcheck.make_lock("lease.epoch")
 
     # -- core ---------------------------------------------------------------- #
 
     def _read(self) -> Optional[dict]:
         try:
-            with open(self.path, encoding="utf-8") as fh:
-                doc = json.load(fh)
+            doc = json.loads(_read_bytes(self.path))
         except (OSError, ValueError):
             return None
         if integrity.verify_doc(doc) is False:
@@ -134,8 +155,7 @@ class FileLease:
 
     def _epoch_floor(self) -> int:
         try:
-            with open(self._floor_path(), encoding="utf-8") as fh:
-                return int(fh.read().strip() or 0)
+            return int(_read_bytes(self._floor_path()).strip() or 0)
         except (OSError, ValueError):
             return 0
 

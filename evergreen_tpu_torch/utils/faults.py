@@ -72,11 +72,21 @@ Fault kinds: ``raise`` (the configured exception, default FaultError),
 ``call`` (run ``fn`` after an optional sleep), ``enospc``/``eio``
 (``OSError`` with that errno); any other kind is returned to the seam as
 a directive string (``short``, ``bitrot``, ``lost``, ...).
+
+A plan is installed explicitly (``install(plan)``) or from the
+``EVG_FAULTS`` environment spec at import time:
+``seam:kind@index[,seam:kind@index...]``, e.g.
+``EVG_FAULTS=scheduler.solve:raise@2,wal.append:raise@5``. Schedules are
+per-seam call indices, so a seeded run replays exactly:
+``FaultPlan.seeded(seed, {"wal.append": 0.1})`` derives the firing
+indices from one RNG, and the plan records every fired fault in
+``fired``.
 """
 from __future__ import annotations
 
 import errno
 import os
+import random
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -136,7 +146,28 @@ class FaultPlan:
         self._always[seam] = fault
         return self
 
-    def fire(self, seam: str) -> Optional[str]:
+    @classmethod
+    def seeded(
+        cls,
+        seed: int,
+        rates: Dict[str, float],
+        horizon: int = 1000,
+        fault: Optional[Fault] = None,
+    ) -> "FaultPlan":
+        """Seeded random schedule: each seam fires with its rate at every
+        call index below ``horizon``. Same seed, same schedule, so a
+        failing run replays exactly."""
+        plan = cls()
+        rng = random.Random(seed)
+        for seam in sorted(rates):
+            for i in range(horizon):
+                if rng.random() < rates[seam]:
+                    plan.at(seam, i, fault or Fault("raise"))
+        return plan
+
+    def fire(
+        self, seam: str, sleep: Callable[[float], None] = time.sleep
+    ) -> Optional[str]:
         with self._lock:
             idx = self._calls.get(seam, 0)
             self._calls[seam] = idx + 1
@@ -153,13 +184,13 @@ class FaultPlan:
                 f"injected fault at {seam}"
             )
         if fault.kind in ("hang", "delay"):
-            time.sleep(fault.delay_s)
+            sleep(fault.delay_s)
             return None
         if fault.kind == "crash":
             os._exit(86)
         if fault.kind == "call":
             if fault.delay_s:
-                time.sleep(fault.delay_s)
+                sleep(fault.delay_s)
             if fault.fn is not None:
                 fault.fn()
             return None
@@ -195,3 +226,20 @@ def fire(seam: str) -> Optional[str]:
     if plan is None:
         return None
     return plan.fire(seam)
+
+
+def _plan_from_env(spec: str) -> FaultPlan:
+    """``seam:kind@index[,...]``: the ``EVG_FAULTS`` install's plan."""
+    plan = FaultPlan()
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        seam, _, rest = part.partition(":")
+        kind, _, idx = rest.partition("@")
+        plan.at(seam.strip(), int(idx) if idx else 0, Fault(kind or "raise"))
+    return plan
+
+
+if os.environ.get("EVG_FAULTS"):
+    install(_plan_from_env(os.environ["EVG_FAULTS"]))

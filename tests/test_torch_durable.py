@@ -661,6 +661,161 @@ def test_per_op_appends_queue_behind_an_async_frame(tmp_path, clock):
     assert [r["o"] for r in records(wals["port"])] == ["g", "p"]
 
 
+def test_per_op_appends_queue_behind_a_sync_frame(tmp_path, clock):
+    """A synchronous commit stalled in its write on the flusher: a per-op
+    write from another thread queues behind it, the backlog counts both,
+    and the packages write the same lines, the frame first."""
+    wals = {}
+    for pkg in PKGS:
+        d = tmp_path / pkg.name
+        store = pkg.store(d)
+        entered, gate = threading.Event(), threading.Event()
+
+        def stall():
+            entered.set()
+            gate.wait(10)
+
+        pkg.faults.install(pkg.faults.FaultPlan().at(
+            "wal.commit", 0, pkg.faults.Fault("call", fn=stall)))
+        store.begin_tick()
+        store.collection("k").upsert({"_id": "in-frame", "v": 1})
+        ticker = threading.Thread(target=store.end_tick)
+        ticker.start()
+        assert entered.wait(10)
+        store.collection("k").update("in-frame", {"v": 2})
+        assert store.flush_backlog() == 2
+        gate.set()
+        ticker.join(10)
+        assert not ticker.is_alive()
+        store.sync_persist()
+        assert store.flush_backlog() == 0
+        wals[pkg.name] = read(d)
+        assert dump(pkg.store(d))["k"][0] == [{"_id": "in-frame", "v": 2}]
+    assert wals["port"] == wals["jax"]
+    assert [r["o"] for r in records(wals["port"])] == ["g", "p"]
+
+
+def test_a_sync_commit_checks_the_lease_once(tmp_path, clock, monkeypatch):
+    """The port's synchronous commit reads the lease and floor files once
+    (its fence check; the flusher, idle with nothing queued, writes the
+    frame without reading them again); JAX's flusher reads them again
+    before the write. The WAL lines are the same."""
+    reads, wals = {}, {}
+    for pkg in PKGS:
+        lease, store = pkg.holder(tmp_path / pkg.name)
+        got = {"peek": 0, "floor": 0}
+        for name, key in (("peek", "peek"), ("_epoch_floor", "floor")):
+            real = getattr(pkg.lease.FileLease, name)
+
+            def counted(self, *a, _real=real, _key=key, **kw):
+                got[_key] += 1
+                return _real(self, *a, **kw)
+
+            monkeypatch.setattr(pkg.lease.FileLease, name, counted)
+        store.begin_tick()
+        store.collection("k").upsert({"_id": "x", "v": 1})
+        store.end_tick()
+        reads[pkg.name] = dict(got)
+        wals[pkg.name] = [r for r in records(read(tmp_path / pkg.name)) if r["o"] == "g"]
+        monkeypatch.undo()
+    assert reads == {"jax": {"peek": 2, "floor": 2}, "port": {"peek": 1, "floor": 1}}
+    assert wals["port"] == wals["jax"] and len(wals["port"]) == 1
+
+
+def test_a_sync_frame_behind_a_busy_flusher_is_checked_again(tmp_path, clock):
+    """A synchronous commit queued while the flusher writes an earlier
+    frame passes its boundary check, the lease is stolen before its write,
+    and the flusher's re-read fences it: the port re-checks every frame
+    that was not written at once, as JAX re-checks every frame."""
+    got = {}
+    for pkg in PKGS:
+        d = tmp_path / pkg.name
+        _, store = pkg.holder(d)
+        entered, gate = threading.Event(), threading.Event()
+
+        def stall():
+            entered.set()
+            gate.wait(10)
+
+        pkg.faults.install(pkg.faults.FaultPlan().at(
+            "wal.commit", 0, pkg.faults.Fault("call", fn=stall)))
+        store.begin_tick()
+        store.collection("k").upsert({"_id": "first", "v": 1})
+        store.end_tick_async()
+        assert entered.wait(10)
+        raised = []
+
+        def sync_tick():
+            store.begin_tick()
+            store.collection("k").upsert({"_id": "second", "v": 1})
+            try:
+                store.end_tick()
+            except pkg.lease.EpochFencedError as exc:
+                raised.append(exc)
+
+        ticker = threading.Thread(target=sync_tick)
+        ticker.start()
+        deadline = time.monotonic() + 10
+        while store.flush_backlog() < 2 and time.monotonic() < deadline:
+            time.sleep(0.001)
+        assert store.flush_backlog() == 2
+        pkg.steal(d)
+        gate.set()
+        ticker.join(10)
+        assert not ticker.is_alive() and len(raised) == 1
+        assert store.fenced
+        got[pkg.name] = [r.get("ops", [{}])[0].get("_id") or r.get("o")
+                         for r in records(read(d)) if r["o"] == "g"]
+    assert got["port"] == got["jax"] and len(got["port"]) == 1
+
+
+def test_sync_ticks_and_per_op_writers_replay_to_the_live_store(tmp_path):
+    """Stress, time-bounded: one thread commits ticks synchronously (each
+    rewriting shared documents) while three threads write the same
+    documents per-op, under a short switch interval; a replay of the WAL
+    equals the live store, so no per-op line landed ahead of a frame it
+    followed."""
+    import sys
+
+    store = PORT.store(tmp_path / "d")
+    stop = threading.Event()
+    errors = []
+
+    def ticker():
+        i = 0
+        while not stop.is_set():
+            store.begin_tick()
+            for k in range(4):
+                store.collection("k").upsert({"_id": f"doc{k}", "by": "tick", "i": i})
+            store.end_tick()
+            i += 1
+
+    def writer(w):
+        i = 0
+        while not stop.is_set():
+            store.collection("k").upsert({"_id": f"doc{i % 4}", "by": f"w{w}", "i": i})
+            i += 1
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    threads = [threading.Thread(target=ticker)] + [
+        threading.Thread(target=writer, args=(w,)) for w in range(3)]
+    try:
+        for t in threads:
+            t.start()
+        time.sleep(1.5)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(10)
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads) and not errors
+    store.sync_persist()
+    replayed = PORT.store(tmp_path / "d")
+    assert dump(replayed) == dump(store)
+    assert len(dump(store)["k"][0]) == 4
+
+
 def test_fleet_segment_ids_match_jax(tmp_path):
     for name in ("wal.log", "wal.shard0.log", "snapshot.shard3.json", "wal.shard12.log",
                  "writer.shard1.lease", "snapshot.json.meta"):

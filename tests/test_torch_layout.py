@@ -1582,3 +1582,101 @@ def test_evgpack_status_reads_disabled_and_build_failed(tmp_path, monkeypatch):
     ts = t_snapshot.build_snapshot(*t_benchgen.generate_problem(4, 120, seed=11),
                                    t_benchgen.NOW)
     _assert_same_arena(js, ts)
+
+
+# --------------------------------------------------------------------------- #
+# the crash matrix, the lock-order witness and the timed scenario case
+# --------------------------------------------------------------------------- #
+
+
+def test_crash_matrix_copies_match_the_jax_package():
+    """The crash matrix's workload clock, ticks, lease TTL, kill points,
+    handoff points and migration tick are JAX's."""
+    from evergreen_tpu_torch.scenarios import crash_matrix as t_cm
+    from test_torch_lockcheck import jax_crash_matrix
+
+    j_cm = jax_crash_matrix()
+
+    for name in ("NOW", "TICK_S", "DEFAULT_TICKS", "LEASE_TTL_S", "KILL_POINTS",
+                 "SHARDED_KILL_POINTS", "MIGRATE_TICK"):
+        assert getattr(t_cm, name) == getattr(j_cm, name), name
+    assert len(t_cm.KILL_POINTS) == 13 and len(t_cm.SHARDED_KILL_POINTS) == 3
+
+
+def _roles(pkg_dir):
+    """role -> the modules (relative paths) that create a lock of it."""
+    import os
+    import re
+
+    out = {}
+    pattern = re.compile(r"make_(?:lock|rlock|condition)\(\s*\"([^\"]+)\"")
+    for dirpath, _, files in os.walk(pkg_dir):
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(dirpath, f)
+                with open(path, encoding="utf-8") as fh:
+                    for role in pattern.findall(fh.read()):
+                        out.setdefault(role, set()).add(os.path.relpath(path, pkg_dir))
+    return out
+
+
+def test_shared_lock_roles_are_created_where_jax_creates_them():
+    """Every lock role both packages create is created in the same
+    modules, and the witness's knob is JAX's."""
+    import os
+
+    from evergreen_tpu.utils import lockcheck as j_lc
+    from evergreen_tpu_torch.utils import lockcheck as t_lc
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    j_roles = _roles(os.path.join(repo, "evergreen_tpu"))
+    t_roles = _roles(os.path.join(repo, "evergreen_tpu_torch"))
+    shared = set(j_roles) & set(t_roles)
+    assert {"lease.epoch", "durable.flush", "wal.journal", "store.collection",
+            "faults.plan"} <= shared
+    for role in sorted(shared):
+        assert t_roles[role] == j_roles[role], role
+    assert t_lc._ENV == j_lc._ENV == "EVERGREEN_TPU_LOCKCHECK"
+
+
+def test_the_timed_case_is_jax_s_field_for_field():
+    """``overload-slow-store-storm``: ticks, seed, durability, the fault
+    and its ticks, the ladder's levels and hysteresis, the checks (their
+    source), the invariants and every other field equal to JAX's."""
+    import inspect
+    import re
+
+    from evergreen_tpu.scenarios import matrix as j_matrix
+    from evergreen_tpu_torch.scenarios import matrix as t_matrix
+
+    def same(tv, jv, where):
+        """Equal values; a function: the same source (the package's name
+        aside) over equal closure values."""
+        if callable(tv) and not isinstance(tv, type):
+            assert inspect.getsource(tv) == re.sub(
+                r"\bevergreen_tpu\b", "evergreen_tpu_torch", inspect.getsource(jv)), where
+            tc, jc = tv.__closure__ or (), jv.__closure__ or ()
+            assert len(tc) == len(jc), where
+            for a, b in zip(tc, jc):
+                same(a.cell_contents, b.cell_contents, where)
+        elif isinstance(jv, dict):
+            assert sorted(tv) == sorted(jv), where
+            for k in jv:
+                same(tv[k], jv[k], f"{where}.{k}")
+        elif isinstance(jv, (list, tuple)):
+            assert len(tv) == len(jv), where
+            for i, (a, b) in enumerate(zip(tv, jv)):
+                same(a, b, f"{where}[{i}]")
+        elif dataclasses.is_dataclass(jv):
+            for f in dataclasses.fields(jv):
+                same(getattr(tv, f.name), getattr(jv, f.name), f"{where}.{f.name}")
+        else:
+            assert tv == jv, where
+
+    t = t_matrix.OVERLOAD_SCENARIO_CASES["slow-store-storm"](0)
+    j = j_matrix.OVERLOAD_SCENARIO_CASES["slow-store-storm"](0)
+    assert t.name == j.name == "overload-slow-store-storm"
+    assert [f.name for f in dataclasses.fields(t)] == [f.name for f in dataclasses.fields(j)]
+    same(t, j, "spec")
+    assert t.ticks == 28 and t.overload == {"store_latency_ms_levels": [3.0, 8.0, 100000.0],
+                                           "hysteresis_ticks": 2}

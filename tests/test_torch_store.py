@@ -355,9 +355,11 @@ def test_lock_factories_and_intent_hosts_match_jax():
         cond = mod.make_condition("r")
         with cond:
             assert not cond.wait(timeout=0.01)
-    # the port has no lock-order witness: the primitives themselves
-    assert isinstance(t_lockcheck.make_lock("r"), type(threading.Lock()))
-    assert isinstance(t_lockcheck.make_rlock("r"), type(threading.RLock()))
+    # with the lock-order witness off, the primitives themselves
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("EVERGREEN_TPU_LOCKCHECK", raising=False)
+        assert isinstance(t_lockcheck.make_lock("r"), type(threading.Lock()))
+        assert isinstance(t_lockcheck.make_rlock("r"), type(threading.RLock()))
     j, t = (m.host.new_intent("d1", "ec2-fleet") for m in (J, T))
     assert t.id.startswith("evg-d1-") and len(t.id) == len(j.id)
     assert len(t.secret) == len(j.secret) == 32 and t.secret != j.secret
