@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (evergreen_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--profile OUT_DIR | --sweep | --procs | --crash |
-                           --timed N [ROOT] | --fleet-crash N]
+                           --matrices | --timed N [ROOT] | --fleet-crash N]
 
 from the root of a checkout; it needs one card. Phases (any failure
 raises and exits non-zero; 6 and 7 run after phase 9's profiled round,
@@ -253,8 +253,8 @@ beside the fleet process, see phase 10):
    every free host pulls in id order; the finished tasks, the (host,
    task) pairs and every document equal, the generator's payload
    staged (the first ``PASS_PULLS`` free hosts pull: 2,048 since PR
-   15). Before round ``ADMIN_ROUND``'s ticks the admin round
-   (``admin_sequence``), through both environments'
+   15, 1,024 since PR 25). Before round ``ADMIN_ROUND``'s ticks the
+   admin round (``admin_sequence``), through both environments'
    ``RestApi.handle`` with the superuser's key: the pushed version
    aborted and restarted, a distro with queued tasks refused while its
    hosts live, drained and deleted, ``set_admin`` of the capacity
@@ -417,8 +417,10 @@ beside the fleet process, see phase 10):
    directory, each replayed twice on the card, ok and deterministic.
    Every card run's launches are held exact against the solves its
    ticks ran on the device (``SolveLog``: each solve's capacity trip
-   count; a solve abandoned at its deadline runs on). Then (5) the
-   process backend (``procs_round``): the proc weathers of
+   count; a solve abandoned at its deadline runs on). Then, once the
+   fleet process's phase 11 has run its prime round (its cold solves
+   hold a 10 s deadline: step 5's worker processes do not boot beside
+   them), (5) the process backend (``procs_round``): the proc weathers of
    ``PROC_CARD_WEATHERS`` through ``ProcScenarioRun`` on the card, each
    once, ok and converged to a CPU run of its workload's uninterrupted
    reference fleet (the solver-leader weathers' stacked solves on the
@@ -441,6 +443,17 @@ beside the fleet process, see phase 10):
    superseded-epoch frame past the fence point) and the handoff point
    ``CRASH_SHARDED_POINT`` on a 2-shard plane; each child life's
    launches exact for the card solves it reported (``crash_lives``);
+   then the matrices round (``matrices_round``; its CPU side before the
+   gate, in the crash process itself): the fault, overload and disk
+   matrices (``scenarios/fault_matrix.py``, ``overload_matrix.py``,
+   ``disk_matrix.py``), each a ``python -m`` child under the witness:
+   ``MATRIX_FAULT_CASE`` (the async WAL's deferred error: degraded "",
+   persist-failed, ""), ``MATRIX_OVERLOAD_CASE`` (planning ticks on the
+   card from the job queue's threads), the engine points
+   ``DISK_CARD_POINTS``, each against its CPU run, and the disk grid's
+   ``DISK_GRID_CONFIG`` points on the card machine's filesystem; every
+   tick planned on the card, every child's launches exact, no
+   inversion;
 14. a JSON line of the kernels (launches: phases 7–13, by path, phase
    8's loop as the path "loop", phase 10's in-memory control store as
    "durable control", phase 12's card environment as "cron" (round 1)
@@ -448,7 +461,7 @@ beside the fleet process, see phase 10):
    phase 13's service process as "rest", the smoke process as "smoke",
    the scenario process and phase 13's replay process as "scenarios",
    the scenario process's proc replays (step 5) as "procs", the crash
-   process's children as "crash";
+   process's children as "crash", its matrices round's as "matrices";
    the other phases check theirs
    on lines of their own), the card's line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -462,7 +475,9 @@ prints the card's line. ``--procs`` runs phase 1, then, instead of the
 rest, step 5 of the scenario process alone with every candidate of
 ``PROC_TIMING_WEATHERS`` and the proc self-test (``procs_timing``): the
 walls a slice reads to choose ``PROC_CARD_WEATHERS``. ``--crash`` runs
-phase 1, then the crash round alone (``crash_alone``). ``--timed N
+phase 1, then the crash round alone (``crash_alone``). ``--matrices``
+runs phase 1, then the matrices round alone (``matrices_alone``), each
+wall printed. ``--timed N
 [ROOT]`` runs phase 1, then the timed case's round N times, its data
 under ROOT (default: the system's temp dir), every healthy commit split
 (``timed_rounds``, ``CommitSplit``): all N rounds must pass; the
@@ -3948,7 +3963,8 @@ def add_launches(total, got) -> None:
         total[k] = total.get(k, 0) + v
 
 
-def process_fleet_phase(torch, np, problem, card="cuda", root=DATA_ROOT) -> dict:
+def process_fleet_phase(torch, np, problem, card="cuda", root=DATA_ROOT,
+                        after_prime=None) -> dict:
     """Phase 11: the process-per-shard fleet (``FleetSupervisor`` on
     ``card``, four shard worker processes on it, the supervisor the
     solver leader with ``solver="always"``), seeded at config 3 with a
@@ -4085,6 +4101,8 @@ def process_fleet_phase(torch, np, problem, card="cuda", root=DATA_ROOT) -> dict
             for k in range(PROC_SHARDS):
                 life = 2 if k == PROC_KILLED and r > PROC_KILL_AFTER else 1
                 local_solves[(k, life)] += solves[k] == "local"
+            if r == 0 and after_prime is not None:
+                after_prime()
             log(f"process fleet round {label}: mode {mode} (shards {solves}, causes "
                 f"{[res[k]['solve_cause'] for k in range(PROC_SHARDS)]}; leader "
                 + ", ".join(f"{x['outcome']} in {x['ms']:.2f} ms" for x in served)
@@ -4231,7 +4249,7 @@ FLEET_ROOT = os.path.join(HERE, "_smoke_fleet")
 FLEET_WAIT_S = 600.0
 
 
-def fleet_phases(torch, np, problem, card="cuda", root=FLEET_ROOT) -> dict:
+def fleet_phases(torch, np, problem, card="cuda", root=FLEET_ROOT, after_prime=None) -> dict:
     """Phase 10's durable fleet (``fleet_phase``), then phase 11
     (``process_fleet_phase``), each one's wall on its own line. They share
     no store, directory or port with phases 9 and 10's durable tick, so
@@ -4251,7 +4269,8 @@ def fleet_phases(torch, np, problem, card="cuda", root=FLEET_ROOT) -> dict:
     t1 = time.perf_counter()
     log(f"phase 10 (the durable fleet): {t1 - t0:.1f} s wall")
     log(f"process fleet on {card}")
-    proc = process_fleet_phase(torch, np, problem, card=card, root=root)
+    proc = process_fleet_phase(torch, np, problem, card=card, root=root,
+                               after_prime=after_prime)
     log(f"phase 11: {time.perf_counter() - t1:.1f} s wall")
     shutil.rmtree(root, ignore_errors=True)
     return {"durable fleet": launches_by["fleet"], "fleet": proc,
@@ -4259,7 +4278,7 @@ def fleet_phases(torch, np, problem, card="cuda", root=FLEET_ROOT) -> dict:
                       "phase 11": time.perf_counter() - t1}}
 
 
-def fleet_child(here, out_path, t0_wall, gate, card="cuda") -> None:
+def fleet_child(here, out_path, t0_wall, gate, card="cuda", primed=None) -> None:
     """The ``spawn`` process of ``start_fleet_child``: its imports and
     config 3, then, once ``gate`` is set, ``fleet_phases`` on ``card`` (it
     touches the card only after the gate: phases 8 and 9's readings of
@@ -4287,23 +4306,28 @@ def fleet_child(here, out_path, t0_wall, gate, card="cuda") -> None:
         if card == "cuda":
             torch.cuda.set_device(0)
             _build.build(("distro_stats", "segment_sum"))  # phase 1 built them: loads
-        result.update(fleet_phases(torch, np, problem, card=card), ok=True)
+        result.update(fleet_phases(torch, np, problem, card=card,
+                                   after_prime=None if primed is None else primed.set),
+                      ok=True)
     except BaseException:
         import traceback
 
         result["error"] = traceback.format_exc()
         raise
     finally:
+        if primed is not None:
+            primed.set()
         with open(out_path, "w") as fh:
             json.dump(result, fh)
 
 
-def start_fleet_child(card="cuda") -> dict:
+def start_fleet_child(card="cuda", primed=None) -> dict:
     """``fleet_child`` started in a ``spawn`` process (not daemonic: phase
     11 starts its CPU twin in a process of its own), with the event it
     waits for before it touches the card (``"gate"``: ``main`` sets it when
     phase 8, which times a kernel, and phase 9's profiled round are done);
-    ``card="cpu"`` rehearses it on the CPU."""
+    it sets ``primed``, where given, once phase 11's prime round is done
+    (or once it ends); ``card="cpu"`` rehearses it on the CPU."""
     import multiprocessing
     import tempfile
 
@@ -4311,7 +4335,8 @@ def start_fleet_child(card="cuda") -> dict:
     out_path = os.path.join(tempfile.mkdtemp(prefix="evg-chip-fleet-"), "result.json")
     t0_wall = time.time() - (time.perf_counter() - _T0)
     gate = ctx.Event()
-    proc = ctx.Process(target=fleet_child, args=(HERE, out_path, t0_wall, gate, card))
+    proc = ctx.Process(target=fleet_child,
+                       args=(HERE, out_path, t0_wall, gate, card, primed))
     proc.start()
     return {"proc": proc, "gate": gate, "out": out_path, "t0": time.perf_counter()}
 
@@ -5315,13 +5340,208 @@ def crash_round(card, cpu=None) -> dict:
     return {"launches": totals, "walls": walls}
 
 
+#: the matrices round (``matrices_round``, in the crash process after its
+#: crash round): each harness a ``python -m`` child under the lock-order
+#: witness, its temp dirs under ``CRASH_ROOT``; the fault matrix's async
+#: WAL case, the overload matrix's threaded churn storm, the disk
+#: matrix's engine points ``DISK_CARD_POINTS`` on the card against a CPU
+#: run of each in the crash process, and the disk grid's
+#: ``DISK_GRID_CONFIG`` config on the card machine's own filesystem (no
+#: device); the other cases run on
+#: the CPU (``tests/test_torch_resilience.py``,
+#: ``tests/test_torch_overload_matrix.py``, ``tests/test_torch_disk_matrix.py``)
+MATRIX_FAULT_CASE = "wal-async-deferred"
+MATRIX_OVERLOAD_CASE = "task-churn-storm"
+DISK_CARD_POINTS = ("wal:enospc", "wal:eio", "wal:bitrot", "wal:short",
+                    "snapshot:enospc", "snapshot:eio", "snapshot:bitrot", "snapshot:short")
+DISK_GRID_CONFIG = "classic"
+MATRIX_WAIT_S = 300.0
+
+
+def matrix_child(module, args, card) -> dict:
+    """``python -m evergreen_tpu_torch.scenarios.<module> ARGS --device
+    CARD`` with the witness on (so it needs no re-execution) and its temp
+    dirs under ``CRASH_ROOT``: its exit code, wall, ``TICKS`` lines and
+    JSON lines; held to exit 0 and no lock-order inversion (its own audit
+    line and the witness's stderr lines)."""
+    from evergreen_tpu_torch.scenarios import crash_matrix as cm
+
+    env = {**os.environ, "EVG_FAULTS": "", "TMPDIR": CRASH_ROOT,
+           "EVERGREEN_TPU_LOCKCHECK": os.environ.get("EVERGREEN_TPU_LOCKCHECK") or "1"}
+    label = f"{module} {' '.join(args)} on {card}"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"evergreen_tpu_torch.scenarios.{module}", *args,
+         "--device", card], cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, timeout=MATRIX_WAIT_S)
+    wall = time.perf_counter() - t0
+    out = proc.stdout.decode(errors="replace")
+    ticks, lines = [], []
+    for line in out.splitlines():
+        if line.startswith("TICKS "):
+            ticks.append(json.loads(line[len("TICKS "):]))
+        elif line.startswith("{"):
+            lines.append(json.loads(line))
+    audit = [x["lockcheck_inversions"] for x in lines if "lockcheck_inversions" in x]
+    witnessed = sum(line.startswith("lockcheck: ORDER INVERSION")
+                    for line in out.splitlines())
+    check(proc.returncode == 0, f"{label}: exit code {proc.returncode}: {out[-4000:]}")
+    check(audit == [0] and witnessed == 0,
+          f"{label}: lock-order inversions {audit}, {witnessed} witness lines: {out[-3000:]}")
+    for t in ticks:
+        check(not t["problems"], f"{label}: {t.get('case') or t.get('point')}: "
+              f"{t['problems']}")
+        if card == "cuda":
+            cs = t["card_solves"]
+            want = nonzero(cm.expected_launches(cs["solves"], cs["capacity_iters"]))
+            check(t["launches"] == want, f"{label}: launches {t['launches']}, expected "
+                  f"{want} for card solves {cs}")
+            check(t["device_ticks"] is None or cs["solves"] == t["device_ticks"],
+                  f"{label}: {cs['solves']} card solves for {t['device_ticks']} device ticks")
+    return {"wall": wall, "ticks": ticks, "lines": lines, "out": out}
+
+
+def matrix_runs(card) -> dict:
+    """The round's three children on ``card``: the fault case, the
+    overload case, and the disk grid's ``DISK_GRID_CONFIG`` points with
+    the engine points."""
+    disk = ["--grid-only", "--config", DISK_GRID_CONFIG, "--engine-only"] + [
+        a for p in DISK_CARD_POINTS for a in ("--engine-point", p)]
+    return {
+        "fault": matrix_child("fault_matrix", ["--seeds", "1", "--case", MATRIX_FAULT_CASE],
+                              card),
+        "overload": matrix_child("overload_matrix",
+                                 ["--seeds", "1", "--case", MATRIX_OVERLOAD_CASE], card),
+        "disk": matrix_child("disk_matrix", disk, card),
+    }
+
+
+def matrices_cpu_references() -> dict:
+    """The matrices round's CPU side, which needs no card, in this process
+    (no child's start to pay; the harnesses' own lines kept out of the
+    log): the fault case's and the churn storm's ticks and each of
+    ``DISK_CARD_POINTS``' verdicts and counters, as their ``TICKS`` lines
+    give them, with walls."""
+    import contextlib
+    import io
+
+    from evergreen_tpu_torch.scenarios import disk_matrix as dm
+    from evergreen_tpu_torch.scenarios import fault_matrix as fm
+    from evergreen_tpu_torch.scenarios import overload_matrix as om
+
+    def as_line(d):
+        return json.loads(json.dumps(d, default=str))
+
+    out, walls = {}, {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        case = fm.run_case(MATRIX_FAULT_CASE, 0, device="cpu")
+        check(case["ok"], f"fault {MATRIX_FAULT_CASE} on cpu: "
+              f"{ {k: v for k, v in case.items() if k != 'logs'} }")
+        out["fault"] = {"ticks": [as_line({k: case[k] for k in ("degraded", "planners",
+                                                                "queues")})]}
+        walls["matrices CPU fault"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        case = om.run_case(MATRIX_OVERLOAD_CASE, 0, device="cpu")
+        check(case["ok"], f"overload {MATRIX_OVERLOAD_CASE} on cpu: "
+              f"{ {k: v for k, v in case.items() if k not in ('logs', 'queues')} }")
+        out["overload"] = {"ticks": [as_line({k: case[k] for k in ("planners", "queues")})]}
+        walls["matrices CPU overload"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        points = [dm.run_engine_point(p, device="cpu") for p in DISK_CARD_POINTS]
+        check(all(r["ok"] for r in points), "disk engine on cpu: "
+              + json.dumps([r["problems"] for r in points])[:3000])
+        out["disk"] = {"ticks": [as_line(r["ticks"]) for r in points]}
+        walls["matrices CPU disk"] = time.perf_counter() - t0
+    out["walls"] = walls
+    return out
+
+
+def matrices_round(card, cpu=None) -> dict:
+    """The fault, overload and disk matrices on ``card``
+    (``scenarios/fault_matrix.py``, ``overload_matrix.py``,
+    ``disk_matrix.py``, each child under the lock-order witness):
+    ``MATRIX_FAULT_CASE`` (degraded "", then persist-failed, then "", the
+    third tick's queues the CPU's, every tick planned on the card),
+    ``MATRIX_OVERLOAD_CASE`` (ok, every planning tick planned on the card
+    with the CPU's queues of the same index), each of ``DISK_CARD_POINTS``
+    (ok, its verdicts and counters the CPU's, every tick on the card) and
+    the grid's ``DISK_GRID_CONFIG`` points (ok, each one's wall); every
+    child's launches exact for its card solves. ``cpu`` is
+    ``matrices_cpu_references()``'s result (computed here when None).
+    Returns the card launches (the kernels line's ``matrices`` column) and
+    the walls."""
+    cpu = matrices_cpu_references() if cpu is None else cpu
+    runs = matrix_runs(card)
+    totals = {}
+    for run in runs.values():
+        for t in run["ticks"]:
+            add_launches(totals, t["launches"])
+    walls = {f"matrices {k}": v["wall"] for k, v in runs.items()}
+
+    label = f"fault {MATRIX_FAULT_CASE} on {card}"
+    (ticks,), (cticks,) = runs["fault"]["ticks"], cpu["fault"]["ticks"]
+    check({"case": MATRIX_FAULT_CASE, "seed": 0, "ok": True} in runs["fault"]["lines"],
+          f"{label}: {runs['fault']['out'][-3000:]}")
+    check(ticks["degraded"] == ["", "persist-failed", ""],
+          f"{label}: degraded {ticks['degraded']}")
+    check(ticks["planners"] == ["tpu"] * 3, f"{label}: planners {ticks['planners']}")
+    check(ticks["queues"] == cticks["queues"], f"{label}: the third tick's queues differ "
+          f"from the CPU's")
+    log(f"{label}: degraded {ticks['degraded']}, planners {ticks['planners']}, the third "
+        f"tick's {len(ticks['queues'])} queues the CPU's; card solves "
+        f"{ticks['card_solves']}, launches {ticks['launches']} (exact), in "
+        f"{runs['fault']['wall']:.1f} s")
+
+    label = f"overload {MATRIX_OVERLOAD_CASE} on {card}"
+    (ticks,), (cticks,) = runs["overload"]["ticks"], cpu["overload"]["ticks"]
+    case = next(x for x in runs["overload"]["lines"] if x.get("case") == MATRIX_OVERLOAD_CASE)
+    shown = {k: case.get(k) for k in ("max_pending", "peaked", "evals_to_green", "shed")}
+    check(case["ok"], f"{label}: {case} (max_pending and peaked read wall time)")
+    check(ticks["planners"] == ["tpu"] * len(ticks["planners"]) and ticks["planners"],
+          f"{label}: planners {ticks['planners']}")
+    check(ticks["queues"] == cticks["queues"],
+          f"{label}: a planning tick's queues differ from the CPU's tick of the same index")
+    log(f"{label}: ok {shown}; {len(ticks['planners'])} planning ticks planned on "
+        f"{card}, each with the CPU's queues; card solves {ticks['card_solves']}, launches "
+        f"{ticks['launches']} (exact), in {runs['overload']['wall']:.1f} s")
+
+    label = f"disk engine on {card}"
+    cpu_points = {t["point"]: t for t in cpu["disk"]["ticks"]}
+    for t in runs["disk"]["ticks"]:
+        c = cpu_points[t["point"]]
+        check(t["planners"] == ["tpu"] * len(t["planners"]),
+              f"{label} {t['point']}: planners {t['planners']}")
+        check(t["verdicts"] == c["verdicts"] and t["counters"] == c["counters"],
+              f"{label} {t['point']}: verdicts {t['verdicts']} counters {t['counters']} "
+              f"against the CPU's {c['verdicts']} {c['counters']}")
+    oks = {x["point"]: x["ok"] for x in runs["disk"]["lines"] if x.get("arm") == "engine"}
+    check(sorted(oks) == sorted(DISK_CARD_POINTS) and all(oks.values()),
+          f"{label}: {oks}: {runs['disk']['out'][-3000:]}")
+    log(f"{label}: {len(oks)} points ok, verdicts and counters the CPU's: "
+        + json.dumps({t["point"]: {"card_solves": t["card_solves"]["solves"],
+                                   "wall_s": t["wall_s"]} for t in runs["disk"]["ticks"]}))
+    grid = [x for x in runs["disk"]["lines"] if x.get("arm") == "grid"]
+    check(len(grid) == 14 and all(g["ok"] for g in grid),
+          f"disk grid {DISK_GRID_CONFIG} on the card machine: "
+          + json.dumps([g for g in grid if not g["ok"]])[:3000])
+    walls[f"matrices disk grid {DISK_GRID_CONFIG}"] = sum(g["wall_s"] for g in grid)
+    log(f"disk grid {DISK_GRID_CONFIG} under {CRASH_ROOT} ({mount_of(CRASH_ROOT)}): "
+        f"{len(grid)} points ok; walls (s) "
+        + json.dumps({g["point"]: g["wall_s"] for g in grid}))
+    log(f"matrices round on {card}: {sum(v['wall'] for v in runs.values()):.1f} s; card "
+        f"launches {nonzero(totals)} (exact per case)")
+    return {"launches": totals, "walls": walls}
+
+
 def crash_child(here, out_path, t0_wall, gate, card="cuda") -> None:
     """The ``spawn`` process of ``start_crash_child``: the CPU references
-    (``crash_cpu_references``), then, once ``gate`` is set (after the
-    fleet process's join),
-    ``crash_round`` on ``card``, its data directories under
-    ``CRASH_ROOT``; writes ``{"ok": ..., the launches and walls, or
-    "error"}`` to ``out_path``."""
+    (``crash_cpu_references``, ``matrices_cpu_references``), then, once
+    ``gate`` is set (after the fleet process's join), ``crash_round`` and
+    ``matrices_round`` on ``card``, their data directories under
+    ``CRASH_ROOT``; writes ``{"ok": ..., the launches of each round
+    ("launches", "matrices") and the walls, or "error"}`` to
+    ``out_path``."""
     global _T0, _TAG
     _T0 = time.perf_counter() - (time.time() - t0_wall)
     _TAG = "[crash process] "
@@ -5341,12 +5561,18 @@ def crash_child(here, out_path, t0_wall, gate, card="cuda") -> None:
         cpu = crash_cpu_references()
         log(f"the crash round's CPU references in {time.perf_counter() - t0:.1f} s: "
             + json.dumps({k: round(v, 1) for k, v in cpu["walls"].items()}))
+        t0 = time.perf_counter()
+        mcpu = matrices_cpu_references()
+        log(f"the matrices round's CPU references in {time.perf_counter() - t0:.1f} s: "
+            + json.dumps({k: round(v, 1) for k, v in mcpu["walls"].items()}))
         t1 = time.perf_counter()
         gate.wait()
         log(f"waited {time.perf_counter() - t1:.1f} s for the fleet process's end")
         out = crash_round(card, cpu)
-        result.update(out, ok=True)
-        result["walls"] = {**cpu["walls"], **out["walls"]}
+        matrices = matrices_round(card, mcpu)
+        result.update(out, ok=True, matrices=matrices["launches"])
+        result["walls"] = {**cpu["walls"], **out["walls"], **mcpu["walls"],
+                           **matrices["walls"]}
     except BaseException:
         import traceback
 
@@ -5441,6 +5667,22 @@ def fleet_crash(n) -> None:
     check(ok == n, f"--fleet-crash: {ok} of {n} fleets ok")
 
 
+def matrices_alone() -> None:
+    """``chip_smoke.py --matrices``: the matrices round alone on the card,
+    its CPU side first, each wall printed."""
+    import shutil
+
+    shutil.rmtree(CRASH_ROOT, ignore_errors=True)
+    os.makedirs(CRASH_ROOT)
+    try:
+        cpu = matrices_cpu_references()
+        out = matrices_round("cuda", cpu)
+        log("--matrices: walls " + json.dumps(
+            {k: round(v, 1) for k, v in {**cpu["walls"], **out["walls"]}.items()}))
+    finally:
+        shutil.rmtree(CRASH_ROOT, ignore_errors=True)
+
+
 def crash_alone() -> None:
     """``chip_smoke.py --crash``: the crash round alone on the card, its
     CPU side first, each wall printed."""
@@ -5460,17 +5702,24 @@ def crash_alone() -> None:
         shutil.rmtree(CRASH_ROOT, ignore_errors=True)
 
 
+#: the longest step 5 waits for phase 11's prime round (the fleet process
+#: sets the event after that round, or when it ends)
+PRIMED_WAIT_S = 300.0
+
+
 def scenario_phases(torch, np, card="cuda", root=SCENARIO_ROOT, trace_ready=None,
-                    trace_out=None, quiet=None, proc_cpu=None) -> dict:
+                    trace_out=None, quiet=None, proc_cpu=None, primed=None) -> dict:
     """The scenario process's work on ``card`` (``card="cpu"`` rehearses
     it: the card's runs then run on the CPU, launch counts 0): a warm-up
     solve at a weather's dims, then steps 1-4 (``weather_round``,
     ``fuzz_round``, ``failover_round``, ``trace_round``). The engine's
     temporary data directories go under ``root``; the trace file stays
     there for phase 13 (``trace_out`` receives its path, ``trace_ready``
-    is set); then step 5, the process backend (``procs_round``, against
-    ``proc_cpu``, ``proc_cpu_references()``'s result, computed there when
-    None), and, once ``quiet`` is set (``main`` has ended phase 13),
+    is set); then, once ``primed`` is set (phase 11's prime round is
+    done: step 5's worker processes must not boot beside its cold solves
+    and their 10 s deadline), step 5, the process backend
+    (``procs_round``, against ``proc_cpu``, ``proc_cpu_references()``'s
+    result, computed there when None), and, once ``quiet`` is set (``main`` has ended phase 13),
     ``timed_round``.
     Returns the card launches of steps 1-4 and of the timed case, those
     of step 5 (``"procs"``), the walls and step 5's supervisor starts."""
@@ -5504,6 +5753,10 @@ def scenario_phases(torch, np, card="cuda", root=SCENARIO_ROOT, trace_ready=None
         trace_out["path"] = path
     if trace_ready is not None:
         trace_ready.set()
+    if primed is not None:
+        t0 = time.perf_counter()
+        primed.wait(PRIMED_WAIT_S)
+        walls["wait for phase 11's prime round"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     procs = procs_round(card, proc_cpu)
     walls["procs"] = time.perf_counter() - t0
@@ -5517,7 +5770,8 @@ def scenario_phases(torch, np, card="cuda", root=SCENARIO_ROOT, trace_ready=None
             "proc_starts": procs["starts"]}
 
 
-def scenario_child(here, out_path, t0_wall, gate, trace_ready, quiet, card="cuda") -> None:
+def scenario_child(here, out_path, t0_wall, gate, trace_ready, quiet, card="cuda",
+                   primed=None) -> None:
     """The ``spawn`` process of ``start_scenario_child``: its imports, the
     packer's check (``packer_phase``) and step 5's CPU side
     (``proc_cpu_references``), then, once ``gate`` is set,
@@ -5553,7 +5807,8 @@ def scenario_child(here, out_path, t0_wall, gate, trace_ready, quiet, card="cuda
             _build.build(("distro_stats", "segment_sum"))  # phase 1 built them: loads
         trace_out = {}
         result.update(scenario_phases(torch, np, card=card, trace_ready=trace_ready,
-                                      trace_out=trace_out, quiet=quiet, proc_cpu=proc_cpu),
+                                      trace_out=trace_out, quiet=quiet, proc_cpu=proc_cpu,
+                                      primed=primed),
                       trace=trace_out.get("path"), ok=True)
     except BaseException:
         import traceback
@@ -5566,12 +5821,14 @@ def scenario_child(here, out_path, t0_wall, gate, trace_ready, quiet, card="cuda
             json.dump(result, fh)
 
 
-def start_scenario_child(card="cuda") -> dict:
+def start_scenario_child(card="cuda", primed=None) -> dict:
     """``scenario_child`` in a ``spawn`` process, with the event it waits
     for before it touches the card (``"gate"``, set with the fleet
     process's), the one it sets once step 4's trace file is written
     (``"trace_ready"``) and the one it waits for before its timed case
-    (``"quiet"``); ``card="cpu"`` rehearses it on the CPU."""
+    (``"quiet"``); before step 5 it waits for ``primed`` where given (the
+    fleet process's, ``start_fleet_child``); ``card="cpu"`` rehearses it
+    on the CPU."""
     import multiprocessing
     import tempfile
 
@@ -5580,7 +5837,8 @@ def start_scenario_child(card="cuda") -> dict:
     t0_wall = time.time() - (time.perf_counter() - _T0)
     gate, trace_ready, quiet = ctx.Event(), ctx.Event(), ctx.Event()
     proc = ctx.Process(target=scenario_child,
-                       args=(HERE, out_path, t0_wall, gate, trace_ready, quiet, card))
+                       args=(HERE, out_path, t0_wall, gate, trace_ready, quiet, card,
+                             primed))
     proc.start()
     return {"proc": proc, "gate": gate, "trace_ready": trace_ready, "quiet": quiet,
             "out": out_path, "t0": time.perf_counter(), "card": card}
@@ -5704,9 +5962,10 @@ BURST_THREADS = 64
 BURST_HOSTS = 32
 #: the free hosts, in id order, that pull in phase 12's agent pass (4,064
 #: were free at config 3, and their pulls over HTTP took 25.3 s of the
-#: phase's 91.1 s on an NVIDIA H100 80GB HBM3 host at 700.00 W; half of
-#: them measure the same rate and hold the same pairs)
-PASS_PULLS = 2048
+#: phase's 91.1 s on an NVIDIA H100 80GB HBM3 host at 700.00 W; a quarter
+#: of them measure the same rate and hold the same pairs: cut to make room
+#: for the crash process's matrices round beside the phase)
+PASS_PULLS = 1024
 BURST_WAIT_S = 2.0
 #: the REST surface's route classes, for the request timings
 ROUTE_CLASSES = (("next_task", "/agent/next_task"), ("task_config", "/agent/task_config/"),
@@ -9496,6 +9755,7 @@ def main() -> int:
     sweep_mode = sys.argv[1:] == ["--sweep"]
     procs_mode = sys.argv[1:] == ["--procs"]
     crash_mode = sys.argv[1:] == ["--crash"]
+    matrices_mode = sys.argv[1:] == ["--matrices"]
     timed = fleets = None
     if len(sys.argv) == 3 and sys.argv[1] == "--profile":
         profile_dir = sys.argv[2]
@@ -9503,12 +9763,13 @@ def main() -> int:
         timed = (int(sys.argv[2]), sys.argv[3] if len(sys.argv) == 4 else None)
     elif len(sys.argv) == 3 and sys.argv[1] == "--fleet-crash" and sys.argv[2].isdigit():
         fleets = int(sys.argv[2])
-    elif len(sys.argv) != 1 and not (sweep_mode or procs_mode or crash_mode):
+    elif len(sys.argv) != 1 and not (sweep_mode or procs_mode or crash_mode
+                                     or matrices_mode):
         print("usage: chip_smoke.py [--profile OUT_DIR | --sweep | --procs | --crash | "
-              "--timed N [ROOT] | --fleet-crash N]", file=sys.stderr)
+              "--matrices | --timed N [ROOT] | --fleet-crash N]", file=sys.stderr)
         return 2
-    side_mode = (sweep_mode or procs_mode or crash_mode or timed is not None
-                 or fleets is not None)
+    side_mode = (sweep_mode or procs_mode or crash_mode or matrices_mode
+                 or timed is not None or fleets is not None)
     if not os.path.isdir(os.path.join(HERE, "evergreen_tpu_torch")):
         print("chip_smoke: evergreen_tpu_torch/ is not beside this script; "
               "run it from a checkout of the repository", file=sys.stderr)
@@ -9625,6 +9886,10 @@ def main() -> int:
         return 0
     if crash_mode:
         crash_alone()
+        print(smi)
+        return 0
+    if matrices_mode:
+        matrices_alone()
         print(smi)
         return 0
     if fleets is not None:
@@ -9877,8 +10142,12 @@ def main() -> int:
     # the card only after phase 8, which times a kernel, and phase 9's
     # profiled round: phases 6 and 7, which read no device time, wait
     # until then, so that the main process has work beside it)
-    child = start_fleet_child()
-    scen = start_scenario_child()
+    # step 5 of the scenario process waits for phase 11's prime round
+    import multiprocessing
+
+    primed = multiprocessing.get_context("spawn").Event()
+    child = start_fleet_child(primed=primed)
+    scen = start_scenario_child(primed=primed)
     crash = start_crash_child()
 
     def open_gates():
@@ -9942,6 +10211,7 @@ def main() -> int:
         shutil.rmtree(SCENARIO_ROOT, ignore_errors=True)
     walls.update({f"scenario process: {k}": v for k, v in scenarios["walls"].items()})
     walls.update({f"crash process: {k}": v for k, v in crashed["walls"].items()})
+    log(f"the crash process's matrices round: card launches {crashed['matrices']}")
     scen_launches = dict(scenarios["launches"])
     add_launches(scen_launches, replayed)
     procs_launches = scenarios["procs"]
@@ -9994,6 +10264,7 @@ def main() -> int:
         r["launches_by_path"]["scenarios"] = scen_launches.get(r["name"], 0)
         r["launches_by_path"]["procs"] = procs_launches.get(r["name"], 0)
         r["launches_by_path"]["crash"] = crashed["launches"].get(r["name"], 0)
+        r["launches_by_path"]["matrices"] = crashed["matrices"].get(r["name"], 0)
         r["launches"] = sum(r["launches_by_path"].values())
     slab = service["slab_row"]
     slab["floor_ms"] = floor_ms
@@ -10011,7 +10282,8 @@ def main() -> int:
         "smoke": smoke.get("fused_distro_stats", 0),
         "scenarios": 0,
         "procs": 0,
-        "crash": 0}
+        "crash": 0,
+        "matrices": 0}
     slab["launches"] = sum(slab["launches_by_path"].values())
     rows.append(slab)
     # the byte and chain bounds behind bound_ms are in the log lines above

@@ -34,7 +34,7 @@ resumed commit must be rejected with ``EpochFencedError`` and ZERO frames
 with a superseded epoch may survive past the fence point in the WAL.
 
 On the card a child starts CUDA, loads both kernels and solves once
-before it takes its lease (``_start_device``), so the renewer's short TTL
+before it takes its lease (``start_device``), so the renewer's short TTL
 never covers them; a kernel or CUDA fault in a child fails its point.
 
     python -m evergreen_tpu_torch.scenarios.crash_matrix [--device cpu]
@@ -183,7 +183,7 @@ def _agent_sim(store, now: float) -> None:
         assign_next_available_task(store, svc, h, now=now)
 
 
-def _start_device(device):
+def start_device(device):
     """The child's device. On the card: both kernels built and loaded and
     one solve of a small problem (CUDA starts with it), all before the
     child takes its lease (the renewer's TTL must not cover them); the
@@ -270,7 +270,7 @@ def child_main(argv: Optional[List[str]] = None) -> int:
         faults.install(plan)
 
     t0 = _time.perf_counter()
-    dev = _start_device(args.device)
+    dev = start_device(args.device)
     boot = {"device_ms": (_time.perf_counter() - t0) * 1e3}
     if args.sharded > 0:
         return sharded_child_main(args, dev, boot)

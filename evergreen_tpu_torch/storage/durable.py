@@ -30,13 +30,15 @@ store: a process killed mid-run resumes with every document intact.
   ``wal.log.prev``; it runs when the WAL passes ``compact_every_ops``
   and at ``close()``.
 - Integrity (``storage/integrity.py``): every WAL line carries a CRC32
-  stamp. Replay stops at the first line that fails it (the end of the
-  valid prefix), quarantines a snapshot that fails its digest and
-  rebuilds from the ``.prev`` generation and both WALs, then writes a
-  fresh checkpoint. A commit that meets ENOSPC sheds its group loudly,
-  floors the store's overload ladder at RED, and the next accepted frame
-  heals with a checkpoint of the in-memory truth. ``scrub()`` runs the
-  same detection on a live store.
+  stamp while ``integrity.wal_crc_enabled()``, which is always but in a
+  harness that writes the pre-stamping format. Replay stops at the first
+  line that fails it (the end of the valid prefix), quarantines a
+  snapshot that fails its digest and rebuilds from the ``.prev``
+  generation and both WALs, then writes a fresh checkpoint. A commit
+  that meets ENOSPC sheds its group loudly, floors the store's overload
+  ladder at RED, and the next accepted frame heals with a checkpoint of
+  the in-memory truth. ``scrub()`` runs the same detection on a live
+  store.
 - Fencing: a store opened with a ``lease`` binds to its epoch, stamps
   every record with it (``"e"``) and writes a fence marker
   ``{"o":"f","e":E}`` at open. A commit re-reads the lease file and, once
@@ -287,8 +289,11 @@ class _Journal:
                 self._torn = False
                 self.total_lines += 1
             self.total_lines += 1
-            # the line's ordinal, then the CRC stamp over all of it
-            line = _integrity.stamp_wal_line('%s,"s":%d}' % (line[:-1], self.total_lines))
+            # the line's ordinal, then the CRC stamp over all of it (an
+            # unstamped line is the pre-stamping format, replayed unchecked)
+            line = '%s,"s":%d}' % (line[:-1], self.total_lines)
+            if _integrity.wal_crc_enabled():
+                line = _integrity.stamp_wal_line(line)
             self._fh.write(line + "\n")
             if self.sync != "none":
                 self._fh.flush()

@@ -17,8 +17,12 @@ either package verifies in the other:
   own canonical serialization and are published by tmp + rename
   (``atomic_write_json``).
 
-The port stamps every WAL line: it has no switch to turn the stamp off
-(the JAX package's ``set_wal_crc_enabled`` serves its measurement tools).
+The WAL stamp can be switched off (``set_wal_crc_enabled``), as in the
+JAX package, so that a harness can write a pre-stamping WAL (the disk
+matrix's upgrade-compatibility case, ``scenarios/disk_matrix.py``) or
+measure the stamp against an unstamped arm; production never turns it
+off, and the journal's writer (``storage/durable.py``) is the one place
+that asks.
 """
 from __future__ import annotations
 
@@ -32,6 +36,22 @@ from typing import Optional
 #: a stamped WAL line ends with the stamp, spliced after the ``"s"``
 #: ordinal
 _WAL_STAMP_RE = re.compile(r',"k":"([0-9a-f]{8})"\}$')
+
+_WAL_CRC_ENABLED = True
+
+
+def wal_crc_enabled() -> bool:
+    return _WAL_CRC_ENABLED
+
+
+def set_wal_crc_enabled(on: bool) -> bool:
+    """Turn WAL line stamping on or off; returns the previous setting so
+    the caller can restore it."""
+    global _WAL_CRC_ENABLED
+    prev = _WAL_CRC_ENABLED
+    _WAL_CRC_ENABLED = bool(on)
+    return prev
+
 
 def crc32_hex(data) -> str:
     if isinstance(data, str):
