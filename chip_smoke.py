@@ -425,8 +425,13 @@ beside the fleet process, see phase 10):
    once, ok and converged to a CPU run of its workload's uninterrupted
    reference fleet (the solver-leader weathers' stacked solves on the
    card against the CPU's), the crash-matrix kill point
-   ``PROC_CRASH_POINT`` against the CPU's reference and the proc sabotage
-   self-test equal to its CPU twin; the leader's launches held exact
+   ``PROC_CRASH_POINT`` against the CPU's reference, the network-chaos
+   matrix's point ``PROC_NET_POINT`` (a solver return delayed past the
+   workers' solve timeout: exactly that round degrades to local solves,
+   the late result is fenced, a later round is fully stacked; converged
+   to the CPU's reference of its workload) and, with ``PROC_SELFTEST``,
+   the proc sabotage self-test equal to its CPU twin; the leader's
+   launches held exact
    against the stacked blocks it solved, each worker life's last
    reported counters against the card solves it reported (``ProcLog``,
    ``proc_card_launches``). The crash process (``start_crash_child``,
@@ -448,11 +453,18 @@ beside the fleet process, see phase 10):
    matrices (``scenarios/fault_matrix.py``, ``overload_matrix.py``,
    ``disk_matrix.py``), each a ``python -m`` child under the witness:
    ``MATRIX_FAULT_CASE`` (the async WAL's deferred error: degraded "",
-   persist-failed, ""), ``MATRIX_OVERLOAD_CASE`` (planning ticks on the
-   card from the job queue's threads), the engine points
+   persist-failed, "") and, at the same time, the engine points
    ``DISK_CARD_POINTS``, each against its CPU run, and the disk grid's
-   ``DISK_GRID_CONFIG`` points on the card machine's filesystem; every
-   tick planned on the card, every child's launches exact, no
+   ``DISK_GRID_CONFIG`` points on the card machine's filesystem; then
+   ``MATRIX_OVERLOAD_CASE`` alone (planning ticks on the card from the
+   job queue's threads); every tick planned on the card, every child's
+   launches exact, no inversion; and the net round (``net_round``; its
+   CPU side before the gate, in the crash process; its child beside the
+   fault and disk children): the network-chaos
+   matrix (``scenarios/net_matrix.py``) as a ``python -m`` child under
+   the witness, ``--grid-only --config classic``: its sabotage red with
+   the CPU's verdicts, its 11 classic points ok with the CPU's verdicts
+   and fingerprints, every tick planned on the card, launches exact, no
    inversion;
 14. a JSON line of the kernels (launches: phases 7–13, by path, phase
    8's loop as the path "loop", phase 10's in-memory control store as
@@ -461,7 +473,8 @@ beside the fleet process, see phase 10):
    phase 13's service process as "rest", the smoke process as "smoke",
    the scenario process and phase 13's replay process as "scenarios",
    the scenario process's proc replays (step 5) as "procs", the crash
-   process's children as "crash", its matrices round's as "matrices";
+   process's children as "crash", its matrices round's as "matrices",
+   its net round's as "net";
    the other phases check theirs
    on lines of their own), the card's line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -477,7 +490,7 @@ rest, step 5 of the scenario process alone with every candidate of
 walls a slice reads to choose ``PROC_CARD_WEATHERS``. ``--crash`` runs
 phase 1, then the crash round alone (``crash_alone``). ``--matrices``
 runs phase 1, then the matrices round alone (``matrices_alone``), each
-wall printed. ``--timed N
+wall printed; ``--net`` phase 1, then the net round alone (``net_alone``). ``--timed N
 [ROOT]`` runs phase 1, then the timed case's round N times, its data
 under ROOT (default: the system's temp dir), every healthy commit split
 (``timed_rounds``, ``CommitSplit``): all N rounds must pass; the
@@ -4979,6 +4992,14 @@ def trace_round(card, solves, totals, root) -> tuple:
 PROC_CARD_WEATHERS = ("proc-fleet-sigkill", "proc-leader-kill-return")
 PROC_CRASH_POINT = ("wal.commit", 1)
 PROC_SELFTEST = False
+#: the network-chaos matrix's point in step 5, after the crash point: a
+#: solver return delayed past the workers' solve timeout, where the
+#: card's stacked solve is the subject (its workload is
+#: ``proc-leader-kill-return``'s but for its deadlines, so its CPU
+#: reference is that one's); the other nine fleet points run on the CPU
+#: (``tests/test_torch_net_matrix_procs.py``, ``python -m
+#: evergreen_tpu_torch.scenarios.net_matrix --device cpu``)
+PROC_NET_POINT = "leader2:solver.return:delay"
 
 
 class ProcLog:
@@ -5087,9 +5108,14 @@ def proc_card_launches(plog, card, label) -> dict:
 
 
 def proc_spec(name):
-    from evergreen_tpu_torch.scenarios import procs
+    """A proc weather's spec, or a network-chaos matrix fleet point's
+    (``config:seam:kind``)."""
+    from evergreen_tpu_torch.scenarios import net_matrix, procs
     from evergreen_tpu_torch.scenarios.library import PROC_WEATHERS
 
+    if ":" in name:
+        config = name.split(":", 1)[0]
+        return net_matrix._proc_net_spec(config, *dict(net_matrix.proc_points(config))[name])
     return (PROC_WEATHERS.get(name) or procs.PROC_SCENARIOS[name])()
 
 
@@ -5111,7 +5137,7 @@ def proc_cpu_references() -> dict:
     from evergreen_tpu_torch.scenarios.fuzz import sabotage_selftest
 
     out = {"workloads": {}, "walls": {}, "selftest": None}
-    for name in PROC_CARD_WEATHERS:
+    for name in PROC_CARD_WEATHERS + (PROC_NET_POINT,):
         spec = proc_spec(name)
         key = proc_workload_key(spec)
         if key not in out["workloads"]:
@@ -5130,7 +5156,7 @@ def proc_cpu_references() -> dict:
 
 #: ``--procs``: the candidates for the card's step 5, each timed alone
 PROC_TIMING_WEATHERS = ("proc-fleet-sigkill", "proc-leader-kill-return", "leader-death",
-                        "proc-net-oneway-partition")
+                        "proc-net-oneway-partition", PROC_NET_POINT)
 
 
 def procs_timing() -> None:
@@ -5142,7 +5168,8 @@ def procs_timing() -> None:
     import tempfile
 
     global PROC_CARD_WEATHERS, PROC_SELFTEST
-    PROC_CARD_WEATHERS, PROC_SELFTEST = PROC_TIMING_WEATHERS, True
+    PROC_CARD_WEATHERS = tuple(w for w in PROC_TIMING_WEATHERS if w != PROC_NET_POINT)
+    PROC_SELFTEST = True
     shutil.rmtree(SCENARIO_ROOT, ignore_errors=True)
     os.makedirs(SCENARIO_ROOT)
     tempfile.tempdir = SCENARIO_ROOT
@@ -5159,6 +5186,30 @@ def procs_timing() -> None:
         shutil.rmtree(SCENARIO_ROOT, ignore_errors=True)
 
 
+def net_point_checks(run, entry, ref, card) -> None:
+    """``PROC_NET_POINT``'s run on ``card``: ok with its three checks
+    (``solver-engaged``, ``stale-accepted-zero``,
+    ``degrade-within-one-round``), no stale result accepted, exactly one
+    round with a solve that timed out (degraded to local) and a later
+    round fully stacked, and its converged state the CPU reference's."""
+    label = f"{PROC_NET_POINT} on {card}"
+    check(entry["ok"], f"{label}: {failed(entry)}")
+    check(sorted(entry["checks"]) == ["degrade-within-one-round", "solver-engaged",
+                                      "stale-accepted-zero"]
+          and all(v["ok"] for v in entry["checks"].values()),
+          f"{label}: checks {entry['checks']}")
+    check(entry["stats"].get("solver_stale_accepted", 0) == 0,
+          f"{label}: {entry['stats'].get('solver_stale_accepted')} stale results accepted")
+    timed_out = [i for i, rnd in enumerate(run.rounds)
+                 if any(r.get("solve_cause") == "timeout" for r in rnd.values())]
+    check(len(timed_out) == 1, f"{label}: rounds with a timed-out solve: {timed_out}")
+    check(any(len(rnd) == 2 and all(r.get("solve") == "stacked" for r in rnd.values())
+              for rnd in run.rounds[timed_out[0] + 1:]),
+          f"{label}: no fully stacked round after the degraded round {timed_out[0]}")
+    check(run.reference_canonical == ref,
+          f"{label}: its converged state differs from the CPU reference")
+
+
 def procs_round(card, cpu=None) -> dict:
     """Step 5: ``PROC_CARD_WEATHERS`` through ``ProcScenarioRun`` on
     ``card``, each once: ok with every invariant, check and SLO, its
@@ -5166,7 +5217,8 @@ def procs_round(card, cpu=None) -> dict:
     uninterrupted reference fleet (one per workload, which is also the
     rerun side of its ``resume_equals_rerun``); then
     ``run_crash_point(*PROC_CRASH_POINT)`` on ``card`` against the CPU's
-    ``proc_reference_state``, and with ``PROC_SELFTEST`` the proc sabotage
+    ``proc_reference_state``, then ``PROC_NET_POINT`` (``net_point_checks``),
+    and with ``PROC_SELFTEST`` the proc sabotage
     self-test on ``card``, its result equal to its CPU twin's. ``cpu`` is
     ``proc_cpu_references()``'s result (computed here when None).
     Launches held by ``proc_card_launches``. Returns the card launches
@@ -5212,6 +5264,20 @@ def procs_round(card, cpu=None) -> dict:
           f"{label} on {card}: {res['problems']}, epochs {res['epochs']}")
     log(f"{label} on {card}: ok in {walls[label]:.1f} s, epochs {res['epochs']}, resumed "
         f"to the CPU rerun's state")
+    spec = proc_spec(PROC_NET_POINT)
+    ref = cpu["workloads"][proc_workload_key(spec)]
+    run = procs.ProcScenarioRun(spec, device=card)
+    run.reference_state = ref
+    entry = on_card(PROC_NET_POINT, run.execute)
+    net_point_checks(run, entry, ref, card)
+    st = entry["stats"]
+    log(f"{PROC_NET_POINT} on {card}: ok in {walls[PROC_NET_POINT]:.1f} s: checks "
+        f"{ {k: v['ok'] for k, v in entry['checks'].items()} }, stacked/local replies "
+        f"{st.get('solver_stacked_replies', 0)}/{st.get('solver_local_replies', 0)}, stale "
+        f"accepted {st.get('solver_stale_accepted', 0)}; rounds' solves "
+        + json.dumps([[r.get("solve_cause") or r.get("solve") for _, r in sorted(rnd.items())]
+                      for rnd in run.rounds])
+        + "; converged to the CPU reference's state")
     if PROC_SELFTEST:
         st = on_card("proc self-test", lambda: sabotage_selftest(proc=True, device=card))
         twin = cpu["selftest"]
@@ -5401,19 +5467,28 @@ def matrix_child(module, args, card) -> dict:
     return {"wall": wall, "ticks": ticks, "lines": lines, "out": out}
 
 
-def matrix_runs(card) -> dict:
-    """The round's three children on ``card``: the fault case, the
-    overload case, and the disk grid's ``DISK_GRID_CONFIG`` points with
-    the engine points."""
-    disk = ["--grid-only", "--config", DISK_GRID_CONFIG, "--engine-only"] + [
+def matrix_runs(card, net=False) -> dict:
+    """The round's three children on ``card``: the fault case and the disk
+    grid's ``DISK_GRID_CONFIG`` points with the engine points at once
+    (neither reads wall time), with ``net`` the net round's child beside
+    them (its checks only bound wall time from below), then the overload
+    case alone (its ``max_pending`` and ``peaked`` read wall time).
+    ``"wall"``: the round's; ``"net"``: the net child's run (or None)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    disk_args = ["--grid-only", "--config", DISK_GRID_CONFIG, "--engine-only"] + [
         a for p in DISK_CARD_POINTS for a in ("--engine-point", p)]
-    return {
-        "fault": matrix_child("fault_matrix", ["--seeds", "1", "--case", MATRIX_FAULT_CASE],
-                              card),
-        "overload": matrix_child("overload_matrix",
-                                 ["--seeds", "1", "--case", MATRIX_OVERLOAD_CASE], card),
-        "disk": matrix_child("disk_matrix", disk, card),
-    }
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        fault = pool.submit(matrix_child, "fault_matrix",
+                            ["--seeds", "1", "--case", MATRIX_FAULT_CASE], card)
+        disk = pool.submit(matrix_child, "disk_matrix", disk_args, card)
+        beside = pool.submit(matrix_child, "net_matrix", list(NET_ARGS), card) if net else None
+        runs = {"fault": fault.result(), "disk": disk.result()}
+        net_run = beside.result() if net else None
+    runs["overload"] = matrix_child("overload_matrix",
+                                    ["--seeds", "1", "--case", MATRIX_OVERLOAD_CASE], card)
+    return {"runs": runs, "net": net_run, "wall": time.perf_counter() - t0}
 
 
 def matrices_cpu_references() -> dict:
@@ -5457,7 +5532,7 @@ def matrices_cpu_references() -> dict:
     return out
 
 
-def matrices_round(card, cpu=None) -> dict:
+def matrices_round(card, cpu=None, net=False) -> dict:
     """The fault, overload and disk matrices on ``card``
     (``scenarios/fault_matrix.py``, ``overload_matrix.py``,
     ``disk_matrix.py``, each child under the lock-order witness):
@@ -5469,15 +5544,18 @@ def matrices_round(card, cpu=None) -> dict:
     the grid's ``DISK_GRID_CONFIG`` points (ok, each one's wall); every
     child's launches exact for its card solves. ``cpu`` is
     ``matrices_cpu_references()``'s result (computed here when None).
-    Returns the card launches (the kernels line's ``matrices`` column) and
-    the walls."""
+    With ``net``, the net round's child runs beside the fault and disk
+    children (``matrix_runs``). Returns the card launches (the kernels
+    line's ``matrices`` column), the walls and the net child's run."""
     cpu = matrices_cpu_references() if cpu is None else cpu
-    runs = matrix_runs(card)
+    children = matrix_runs(card, net)
+    runs = children["runs"]
     totals = {}
     for run in runs.values():
         for t in run["ticks"]:
             add_launches(totals, t["launches"])
     walls = {f"matrices {k}": v["wall"] for k, v in runs.items()}
+    walls["matrices round"] = children["wall"]
 
     label = f"fault {MATRIX_FAULT_CASE} on {card}"
     (ticks,), (cticks,) = runs["fault"]["ticks"], cpu["fault"]["ticks"]
@@ -5529,19 +5607,100 @@ def matrices_round(card, cpu=None) -> dict:
     log(f"disk grid {DISK_GRID_CONFIG} under {CRASH_ROOT} ({mount_of(CRASH_ROOT)}): "
         f"{len(grid)} points ok; walls (s) "
         + json.dumps({g["point"]: g["wall_s"] for g in grid}))
-    log(f"matrices round on {card}: {sum(v['wall'] for v in runs.values()):.1f} s; card "
+    log(f"matrices round on {card}: {children['wall']:.1f} s (the fault and disk children "
+        f"{'and the net child ' if net else ''}at once, then the overload child); card "
         f"launches {nonzero(totals)} (exact per case)")
-    return {"launches": totals, "walls": walls}
+    return {"launches": totals, "walls": walls, "net": children["net"]}
+
+
+#: the net round (``net_round``, in the crash process, its child beside
+#: the matrices round's fault and disk children): the network-chaos
+#: matrix's classic grid on the card, a ``python -m`` child under the
+#: witness; its fleet points boot proc
+#: workers (14-34 s each on the card), so one of them runs in step 5
+#: (``PROC_NET_POINT``) and the rest on the CPU
+#: (``tests/test_torch_net_matrix*.py``)
+NET_ARGS = ("--grid-only", "--config", "classic")
+
+
+def net_cpu_references() -> dict:
+    """The net round's CPU side, which needs no card, in this process (the
+    harness's own lines kept out of the log): the sabotage's verdicts and
+    each classic point's ``ok``, verdicts and fingerprint, in the child's
+    order after the mock cloud's reset (a fresh process's), with the
+    wall."""
+    import contextlib
+    import io
+
+    from evergreen_tpu_torch.cloud.mock import MockCloudManager
+    from evergreen_tpu_torch.scenarios import net_matrix as nm
+
+    t0 = time.perf_counter()
+    MockCloudManager.reset()
+    with contextlib.redirect_stdout(io.StringIO()):
+        (sab,) = nm.run_sabotage(device="cpu")
+        check(sab["ok"], f"net sabotage on cpu: {sab['problems']}")
+        points = {}
+        for point, factory in nm.classic_points():
+            entry, line = nm.run_engine("grid", point, factory(), device="cpu")
+            points[point] = {"ok": bool(entry["ok"]) and not line["problems"],
+                             "verdicts": line["verdicts"],
+                             "fingerprint": line["fingerprint"]}
+            check(points[point]["ok"], f"net {point} on cpu: {line['problems']} "
+                  f"{failed(entry)}")
+    MockCloudManager.reset()
+    return {"sabotage": sab["verdicts"], "points": points,
+            "walls": {"net CPU": time.perf_counter() - t0}}
+
+
+def net_round(card, cpu=None, run=None) -> dict:
+    """The network-chaos matrix on ``card`` (``scenarios/net_matrix.py``
+    ``NET_ARGS``, a child under the lock-order witness): its sabotage red
+    with the CPU's verdicts, each classic point ok with the CPU's
+    verdicts and fingerprint, every tick planned on the card, launches
+    exact for each point's card solves, no inversion (``matrix_child``).
+    ``cpu`` is ``net_cpu_references()``'s result (computed here when
+    None); ``run`` the child's run where it ran already (beside the
+    matrices round's children), else it runs here. Returns the card
+    launches (the kernels line's ``net`` column) and the walls."""
+    cpu = net_cpu_references() if cpu is None else cpu
+    run = matrix_child("net_matrix", list(NET_ARGS), card) if run is None else run
+    label = f"net matrix {' '.join(NET_ARGS)} on {card}"
+    results = {x["point"]: x for x in run["lines"] if "arm" in x}
+    ticks = {t["point"]: t for t in run["ticks"]}
+    sab = results.get("unfenced-duplicate", {})
+    check(sab.get("ok") and sab.get("verdicts") == cpu["sabotage"],
+          f"{label}: the sabotage {sab} against the CPU's verdicts {cpu['sabotage']}")
+    check(sorted(ticks) == sorted(["unfenced-duplicate", *cpu["points"]])
+          and sorted(results) == sorted(ticks),
+          f"{label}: lines for {sorted(results)}, TICKS for {sorted(ticks)}")
+    totals = {}
+    for point, want in cpu["points"].items():
+        t = ticks[point]
+        check(results[point]["ok"], f"{label}: {point}: {results[point]['problems']}")
+        check(t["planners"] == ["tpu"] * len(t["planners"]) and t["planners"],
+              f"{label}: {point}: planners {t['planners']}")
+        check(t["verdicts"] == want["verdicts"] and t["fingerprint"] == want["fingerprint"],
+              f"{label}: {point}: verdicts {t['verdicts']} fingerprint {t['fingerprint']} "
+              f"against the CPU's {want['verdicts']} {want['fingerprint']}")
+    for t in run["ticks"]:
+        add_launches(totals, t["launches"])
+    log(f"{label}: the sabotage red with the CPU's verdicts; {len(cpu['points'])} classic "
+        f"points ok, verdicts and fingerprints the CPU's, every tick planned on {card}: "
+        + json.dumps({p: {"card_solves": ticks[p]["card_solves"]["solves"],
+                          "wall_s": ticks[p]["wall_s"]} for p in ticks})
+        + f"; launches {nonzero(totals)} (exact per point), in {run['wall']:.1f} s")
+    return {"launches": totals, "walls": {"net": run["wall"]}}
 
 
 def crash_child(here, out_path, t0_wall, gate, card="cuda") -> None:
     """The ``spawn`` process of ``start_crash_child``: the CPU references
-    (``crash_cpu_references``, ``matrices_cpu_references``), then, once
-    ``gate`` is set (after the fleet process's join), ``crash_round`` and
-    ``matrices_round`` on ``card``, their data directories under
-    ``CRASH_ROOT``; writes ``{"ok": ..., the launches of each round
-    ("launches", "matrices") and the walls, or "error"}`` to
-    ``out_path``."""
+    (``crash_cpu_references``, ``matrices_cpu_references``,
+    ``net_cpu_references``), then, once ``gate`` is set (after the fleet
+    process's join), ``crash_round``, ``matrices_round`` and ``net_round``
+    on ``card``, their data directories under ``CRASH_ROOT``; writes
+    ``{"ok": ..., the launches of each round ("launches", "matrices",
+    "net") and the walls, or "error"}`` to ``out_path``."""
     global _T0, _TAG
     _T0 = time.perf_counter() - (time.time() - t0_wall)
     _TAG = "[crash process] "
@@ -5565,14 +5724,17 @@ def crash_child(here, out_path, t0_wall, gate, card="cuda") -> None:
         mcpu = matrices_cpu_references()
         log(f"the matrices round's CPU references in {time.perf_counter() - t0:.1f} s: "
             + json.dumps({k: round(v, 1) for k, v in mcpu["walls"].items()}))
+        ncpu = net_cpu_references()
+        log(f"the net round's CPU references in {ncpu['walls']['net CPU']:.1f} s")
         t1 = time.perf_counter()
         gate.wait()
         log(f"waited {time.perf_counter() - t1:.1f} s for the fleet process's end")
         out = crash_round(card, cpu)
-        matrices = matrices_round(card, mcpu)
-        result.update(out, ok=True, matrices=matrices["launches"])
+        matrices = matrices_round(card, mcpu, net=True)
+        net = net_round(card, ncpu, matrices["net"])
+        result.update(out, ok=True, matrices=matrices["launches"], net=net["launches"])
         result["walls"] = {**cpu["walls"], **out["walls"], **mcpu["walls"],
-                           **matrices["walls"]}
+                           **matrices["walls"], **ncpu["walls"], **net["walls"]}
     except BaseException:
         import traceback
 
@@ -5678,6 +5840,22 @@ def matrices_alone() -> None:
         cpu = matrices_cpu_references()
         out = matrices_round("cuda", cpu)
         log("--matrices: walls " + json.dumps(
+            {k: round(v, 1) for k, v in {**cpu["walls"], **out["walls"]}.items()}))
+    finally:
+        shutil.rmtree(CRASH_ROOT, ignore_errors=True)
+
+
+def net_alone() -> None:
+    """``chip_smoke.py --net``: the net round alone on the card, its CPU
+    side first, each wall printed."""
+    import shutil
+
+    shutil.rmtree(CRASH_ROOT, ignore_errors=True)
+    os.makedirs(CRASH_ROOT)
+    try:
+        cpu = net_cpu_references()
+        out = net_round("cuda", cpu)
+        log("--net: walls " + json.dumps(
             {k: round(v, 1) for k, v in {**cpu["walls"], **out["walls"]}.items()}))
     finally:
         shutil.rmtree(CRASH_ROOT, ignore_errors=True)
@@ -9756,6 +9934,7 @@ def main() -> int:
     procs_mode = sys.argv[1:] == ["--procs"]
     crash_mode = sys.argv[1:] == ["--crash"]
     matrices_mode = sys.argv[1:] == ["--matrices"]
+    net_mode = sys.argv[1:] == ["--net"]
     timed = fleets = None
     if len(sys.argv) == 3 and sys.argv[1] == "--profile":
         profile_dir = sys.argv[2]
@@ -9764,11 +9943,11 @@ def main() -> int:
     elif len(sys.argv) == 3 and sys.argv[1] == "--fleet-crash" and sys.argv[2].isdigit():
         fleets = int(sys.argv[2])
     elif len(sys.argv) != 1 and not (sweep_mode or procs_mode or crash_mode
-                                     or matrices_mode):
+                                     or matrices_mode or net_mode):
         print("usage: chip_smoke.py [--profile OUT_DIR | --sweep | --procs | --crash | "
-              "--matrices | --timed N [ROOT] | --fleet-crash N]", file=sys.stderr)
+              "--matrices | --net | --timed N [ROOT] | --fleet-crash N]", file=sys.stderr)
         return 2
-    side_mode = (sweep_mode or procs_mode or crash_mode or matrices_mode
+    side_mode = (sweep_mode or procs_mode or crash_mode or matrices_mode or net_mode
                  or timed is not None or fleets is not None)
     if not os.path.isdir(os.path.join(HERE, "evergreen_tpu_torch")):
         print("chip_smoke: evergreen_tpu_torch/ is not beside this script; "
@@ -9890,6 +10069,10 @@ def main() -> int:
         return 0
     if matrices_mode:
         matrices_alone()
+        print(smi)
+        return 0
+    if net_mode:
+        net_alone()
         print(smi)
         return 0
     if fleets is not None:
@@ -10211,7 +10394,8 @@ def main() -> int:
         shutil.rmtree(SCENARIO_ROOT, ignore_errors=True)
     walls.update({f"scenario process: {k}": v for k, v in scenarios["walls"].items()})
     walls.update({f"crash process: {k}": v for k, v in crashed["walls"].items()})
-    log(f"the crash process's matrices round: card launches {crashed['matrices']}")
+    log(f"the crash process's matrices round: card launches {crashed['matrices']}; its net "
+        f"round's {crashed['net']}")
     scen_launches = dict(scenarios["launches"])
     add_launches(scen_launches, replayed)
     procs_launches = scenarios["procs"]
@@ -10232,7 +10416,9 @@ def main() -> int:
     # "ingest", the cold tick of the GraphQL round as "cold"), phase 13's
     # service process ("rest"), the smoke process ("smoke"), the scenario
     # process's engine runs and the replay process ("scenarios") and its
-    # proc replays ("procs": their leaders' and workers', cold builds). The warm
+    # proc replays ("procs": their leaders' and workers', cold builds), the
+    # crash process's children ("crash") and its matrices and net rounds'
+    # ("matrices", "net"). The warm
     # card store and plane (b) of phases 8-9, the smoke process's store, and the
     # durable card stores of phases 10, 12 and 13, pack through their
     # resident planes: their fused_distro_stats ran on the slab layout and
@@ -10265,6 +10451,7 @@ def main() -> int:
         r["launches_by_path"]["procs"] = procs_launches.get(r["name"], 0)
         r["launches_by_path"]["crash"] = crashed["launches"].get(r["name"], 0)
         r["launches_by_path"]["matrices"] = crashed["matrices"].get(r["name"], 0)
+        r["launches_by_path"]["net"] = crashed["net"].get(r["name"], 0)
         r["launches"] = sum(r["launches_by_path"].values())
     slab = service["slab_row"]
     slab["floor_ms"] = floor_ms
@@ -10283,7 +10470,8 @@ def main() -> int:
         "scenarios": 0,
         "procs": 0,
         "crash": 0,
-        "matrices": 0}
+        "matrices": 0,
+        "net": 0}
     slab["launches"] = sum(slab["launches_by_path"].values())
     rows.append(slab)
     # the byte and chain bounds behind bound_ms are in the log lines above

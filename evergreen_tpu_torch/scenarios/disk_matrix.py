@@ -758,16 +758,18 @@ def run_cases() -> List[dict]:
 
 # ---------------------------------------------------------------- fuzz arm
 
-def fuzz_reachable(want: int = 3, max_probe: int = 200) -> list:
+def fuzz_reachable(want: int = 3, max_probe: int = 200,
+                   kind: str = "disk_fault") -> list:
     """The first ``want`` (seed, spec) of the fuzzer's campaign seeds
-    whose weather draws a ``disk_fault`` event, of ``max_probe`` probed."""
+    whose weather draws a ``kind`` event (the net matrix asks for
+    ``net_fault``), of ``max_probe`` probed."""
     from . import fuzz as fuzz_mod
 
     found = []
     for seed in range(fuzz_mod.DEFAULT_CAMPAIGN_SEED,
                       fuzz_mod.DEFAULT_CAMPAIGN_SEED + max_probe):
         spec = fuzz_mod.generate_weather(seed)
-        if any(e.kind == "disk_fault" for e in spec.events):
+        if any(e.kind == kind for e in spec.events):
             found.append((seed, spec))
             if len(found) >= want:
                 break

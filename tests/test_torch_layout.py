@@ -1716,15 +1716,71 @@ def test_the_matrices_constants_are_jax_s():
                                     for k in j_dm.ENGINE_KINDS]
 
 
+def jax_net_sabotage_spec(j_nm):
+    """The spec JAX's ``run_sabotage`` builds inside itself, taken from
+    its call to the engine (not run)."""
+    from evergreen_tpu.scenarios import engine as j_engine
+
+    seen, real = [], j_engine.run_scenario
+    j_engine.run_scenario = lambda spec, *a, **kw: seen.append(spec) or {
+        "ok": False, "invariants": {"no_duplicate_dispatch": {"ok": False}}}
+    try:
+        assert j_nm.run_sabotage()[0]["ok"]
+    finally:
+        j_engine.run_scenario = real
+    (spec,) = seen
+    return spec
+
+
+def test_the_net_matrix_is_jax_s():
+    """The network-chaos matrix's constants, its 11 classic specs, its 10
+    proc specs (their checks by source) and its sabotage spec are JAX's
+    field for field; its classic and proc points are named as JAX's."""
+    from evergreen_tpu_torch.scenarios import net_matrix as t_nm
+    from test_torch_resilience import jax_module
+
+    j_nm = jax_module("tools.net_matrix")
+    for name in ("CONFIGS", "AGENT_KINDS", "AGENT_RATES", "REPLICA_KINDS", "FLEET_GRID",
+                 "LEADER_GRID", "WEATHERS", "PROC_WEATHERS"):
+        assert getattr(t_nm, name) == getattr(j_nm, name), name
+    points = []
+    for kind in j_nm.AGENT_KINDS:
+        for rate in j_nm.AGENT_RATES:
+            same_value(t_nm._classic_agent_spec(kind, rate),
+                       j_nm._classic_agent_spec(kind, rate), f"agent {kind}@{rate}")
+            points.append("classic:agent.request:%s@%d" % (kind, int(rate * 100)))
+    for kind in j_nm.REPLICA_KINDS:
+        same_value(t_nm._classic_replica_spec(kind), j_nm._classic_replica_spec(kind),
+                   f"replica {kind}")
+        points.append("classic:replica.tail:%s" % kind)
+    assert [p for p, _ in t_nm.classic_points()] == points and len(points) == 11
+    procs = []
+    for config, grid in (("fleet2", j_nm.FLEET_GRID), ("leader2", j_nm.LEADER_GRID)):
+        for seam, kind, delay_s in grid:
+            same_value(t_nm._proc_net_spec(config, seam, kind, delay_s),
+                       j_nm._proc_net_spec(config, seam, kind, delay_s),
+                       f"{config}:{seam}:{kind}")
+            procs.append(("%s:%s:%s" % (config, seam, kind), (seam, kind, delay_s)))
+    assert t_nm.proc_points("fleet2") + t_nm.proc_points("leader2") == procs
+    assert len(procs) == 10
+    same_value(t_nm.sabotage_spec(), jax_net_sabotage_spec(j_nm), "sabotage")
+    assert [f.__name__ for f in t_nm.CASE_FNS] == [
+        "wait_reply_reorder_case", "wait_reply_duplicate_error_case",
+        "sock_adopt_refused_case", "sock_adopt_halfopen_case",
+        "dispatch_cas_duplicate_case", "retry_jitter_spread_case"]
+    for fn in t_nm.CASE_FNS:
+        assert callable(getattr(j_nm, fn.__name__)), fn.__name__
+
+
 def test_the_matrices_import_nothing_of_jax_or_the_tools():
-    """In a fresh interpreter that refuses them, the three harnesses
+    """In a fresh interpreter that refuses them, the four harnesses
     import without JAX, the JAX package or its tools."""
     import os
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = _IMPORT_CHECK.split("import evergreen_tpu_torch as pkg")[0] + (
         "from evergreen_tpu_torch.scenarios import fault_matrix, disk_matrix, "
-        "overload_matrix\n"
+        "overload_matrix, net_matrix\n"
         "bad = sorted(m for m in sys.modules if banned(m))\n"
         "assert not bad, bad\n"
         "print('ok')\n")

@@ -222,6 +222,55 @@ def test_agent_request_partition_exhausts_bounded_budget(faults):
     assert time.monotonic() - t0 < 5.0
 
 
+def test_agent_request_duplication_never_double_claims(faults):
+    """JAX's test of the same name on the port: the ``duplicate`` kind
+    sends the SAME pull twice over a real server (``RestApi.serve``) from
+    ``RestCommunicator``. The second copy resolves to the same assignment
+    (the CAS's resume path), never a second task: one ``TASK_DISPATCHED``."""
+    from evergreen_tpu_torch.agent.rest_comm import RestCommunicator
+    from evergreen_tpu_torch.api.rest import RestApi
+    from evergreen_tpu_torch.globals import HostStatus, Provider, TaskStatus
+    from evergreen_tpu_torch.models import distro as distro_mod
+    from evergreen_tpu_torch.models import host as host_mod
+    from evergreen_tpu_torch.models import task as task_mod
+    from evergreen_tpu_torch.models import task_queue as tq_mod
+    from evergreen_tpu_torch.models.distro import Distro
+    from evergreen_tpu_torch.models.host import Host
+    from evergreen_tpu_torch.models.task_queue import TaskQueueItem
+    from evergreen_tpu_torch.storage.store import Store
+
+    # tools/bench_dispatch.py's seed(store, 0, 1), then JAX's two tasks
+    store = Store()
+    distro_mod.insert(store, Distro(id="d1", provider=Provider.MOCK.value))
+    host_mod.insert_many(store, [Host(id="h0", distro_id="d1", provider=Provider.MOCK.value,
+                                      status=HostStatus.RUNNING.value)])
+    for tid in ("dup-t", "dup-u"):
+        task_mod.insert(store, task_mod.Task(
+            id=tid, distro_id="d1", status=TaskStatus.UNDISPATCHED.value,
+            activated=True, project="p", build_variant="bv", version="v"))
+    tq_mod.save(store, tq_mod.TaskQueue(
+        distro_id="d1", generated_at=time.time(),
+        queue=[TaskQueueItem(id=tid, display_name=tid, project="p", build_variant="bv",
+                             version="v", dependencies=[], dependencies_met=True)
+               for tid in ("dup-t", "dup-u")]))
+    srv = RestApi(store).serve("127.0.0.1", 0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    comm = RestCommunicator(f"http://127.0.0.1:{srv.server_address[1]}")
+    plan = faults.install(faults.FaultPlan().at("agent.request", 0, faults.Fault("duplicate")))
+    try:
+        t = comm.next_task("h0")
+    finally:
+        faults.uninstall()
+        srv.shutdown()
+        srv.server_close()
+    assert plan.fired == [("agent.request", 0, "duplicate")]
+    assert t is not None and t.id == "dup-t"
+    dispatched = store.collection("events").find(
+        lambda d: d.get("event_type") == "TASK_DISPATCHED")
+    assert len(dispatched) == 1, [d["resource_id"] for d in dispatched]
+    assert host_mod.get(store, "h0").running_task == "dup-t"
+
+
 # --------------------------------------------------------------------------- #
 # socket adoption: refused and half-open
 # --------------------------------------------------------------------------- #

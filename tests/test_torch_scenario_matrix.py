@@ -20,6 +20,7 @@ import evergreen_tpu_torch.scenarios as t_sc  # noqa: E402
 
 from test_torch_scenarios import (  # noqa: E402,F401
     GREEN,
+    TIMED_ATTEMPTS,
     assert_same_entry,
     failures,
     fresh,
@@ -41,13 +42,6 @@ def test_case_matches_jax(name, x64, fresh):
     assert want["deterministic"] and got["deterministic"]
     assert_same_entry(want, got)
     assert got["fingerprint"] == GREEN[got["name"]]["fingerprint"]
-
-
-#: replays of a timed case before it counts as failed: its ladder reads
-#: the host's real WAL commit latency (YELLOW from 3 ms), and on a loaded
-#: host (the suite's other workers) a recovery tick can read above that
-#: in either package, as JAX's own ``tests/test_overload.py`` case shows
-TIMED_ATTEMPTS = 3
 
 
 @pytest.mark.parametrize("name", TIMED)

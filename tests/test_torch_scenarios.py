@@ -147,21 +147,51 @@ def test_scenario_fingerprint_excludes_timing(fresh):
     assert scorecard_entry_fingerprint(slower) == a["fingerprint"]
 
 
-def test_full_sweep_deterministic(fresh):
-    """Every weather, regression spec and matrix case through the port's
-    engine twice: each green, each deterministic one fingerprint-equal."""
+def sweep_specs():
+    """Every weather, regression spec and matrix case, by name."""
     specs = {n: f for n, f in t_sc.SCENARIOS.items()}
     specs.update(t_regressions())
     for reg in (t_sc.FAULT_SCENARIO_CASES, t_sc.OVERLOAD_SCENARIO_CASES):
         for n, f in reg.items():
             specs[n] = (lambda f=f: f(0))
-    for name, factory in specs.items():
+    return specs
+
+
+SWEEP = sweep_specs()
+
+#: replays of a timed case (``deterministic=False``) before it counts as
+#: failed: its ladder reads the host's real WAL commit latency (YELLOW
+#: from 3 ms), and on a loaded host (the suite's other workers) a
+#: recovery tick can read above that in either package, as JAX's own
+#: ``tests/test_overload.py`` case shows
+TIMED_ATTEMPTS = 3
+
+
+@pytest.mark.parametrize("name", sorted(SWEEP))
+def test_full_sweep_deterministic(name, fresh):
+    """One spec of the sweep (every weather, regression spec and matrix
+    case) through the port's engine twice: both green, a deterministic
+    one fingerprint-equal. A timed one (the ``slow-store-storm`` case)
+    gets ``TIMED_ATTEMPTS`` replays of the pair to be green in one."""
+    factory = SWEEP[name]
+    attempts = 1 if factory().deterministic else TIMED_ATTEMPTS
+    seen = []
+    for _ in range(attempts):
         a = t_sc.run_scenario(factory(), device="cpu")
         b = t_sc.run_scenario(factory(), device="cpu")
         join_abandoned_solves()
-        assert a["ok"] and b["ok"], (name, failures(a), failures(b))
-        if a["deterministic"]:
-            assert a["fingerprint"] == b["fingerprint"], name
+        seen.append((failures(a), failures(b)))
+        if a["ok"] and b["ok"]:
+            break
+    assert a["ok"] and b["ok"], (name, seen)
+    if a["deterministic"]:
+        assert a["fingerprint"] == b["fingerprint"], name
+
+
+def test_the_sweep_times_only_the_slow_store_storm():
+    assert [n for n, f in sorted(SWEEP.items()) if not f().deterministic] == [
+        "slow-store-storm"]
+    assert len(SWEEP) == 24
 
 
 def test_sabotage_duplicate_claim_is_caught(x64, fresh):
